@@ -1,0 +1,425 @@
+"""Device-resident vector + lexical index on one torch device.
+
+Port of `rag_dpo_tpu/index/store.py` for a single device with bf16 dense
+storage. The host store (f16 dense rows, ELL terms/impacts/tf/dl, alive
+flags, metadata, string ids) and the checkpoint format (`arrays.npz`,
+`manifest.json`, `metadata.json`, `bm25.json`) are the JAX package's, so a
+checkpoint saved by either package loads in the other. The device image is
+the same padded layout: rows rounded up to `row_block`, padding rows with
+zero vectors, −1 terms and a −1e4 penalty.
+
+Search engines: dense top-k is plain torch (`ops.topk`: approx = exact +
+cut, exact = blocked, masked = penalty-folded approx); the sparse arm runs
+the ELL kernel (`ops.sparse.ell_topk`) over the whole padded image for
+unfiltered queries, and the plain full scorer for filtered ones. Int8
+storage, the postings engine and mesh sharding are later slices of the
+port (ROADMAP) and raise here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from ..ops import approx_topk, blocked_topk, default_device
+from ..ops.sparse import ell_scores, ell_topk
+from .metadata import MetadataStore, compile_filter
+
+NEG_INF = -1e30
+_NOT_PORTED = "not ported yet (ROADMAP, port queue item {})"
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexConfig:
+    dim: int = 1024
+    ell_width: int = 32          # sparse terms stored per chunk
+    colbert_dim: int = 0         # 0 = no multi-vector storage
+    colbert_len: int = 0
+    row_block: int = 1024        # device padding granularity
+    device_dtype: Any = torch.bfloat16
+    # above this row count (or for heavy query batches) the JAX package
+    # switches to the postings engine, which the port does not have yet
+    postings_threshold: int = 100_000
+    postings_cap: int = 512
+    postings_candidates: int = 512
+    quantize_int8: bool = False
+    device_refine: bool = False
+    sweep_block_rows: int = 0
+
+
+class DeviceIndex:
+    def __init__(self, config: IndexConfig, device=None):
+        if config.quantize_int8:
+            raise NotImplementedError("int8 storage " + _NOT_PORTED.format(4))
+        self.config = config
+        self.device = default_device(device)
+        self.ids: list[str] = []
+        self._id_pos: dict[str, int] = {}
+        self.meta = MetadataStore()
+        self._dense = np.zeros((0, config.dim), np.float16)
+        self._terms = np.full((0, config.ell_width), -1, np.int32)
+        self._impacts = np.zeros((0, config.ell_width), np.float32)
+        self._tf = np.zeros((0, config.ell_width), np.int32)
+        self._dl = np.zeros((0,), np.int32)
+        self.bm25_stats = None
+        self._colbert = (
+            np.zeros((0, config.colbert_len, config.colbert_dim), np.float16)
+            if config.colbert_dim
+            else None
+        )
+        self._alive = np.zeros((0,), bool)
+        self._device = None  # dict of device tensors, rebuilt on change
+
+    # ------------------------------------------------------------ basics
+    def __len__(self) -> int:
+        return int(self._alive.sum())
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.ids)
+
+    def __contains__(self, chunk_id: str) -> bool:
+        pos = self._id_pos.get(chunk_id)
+        return pos is not None and bool(self._alive[pos])
+
+    # ------------------------------------------------------------- write
+    def add(
+        self,
+        chunk_ids: Sequence[str],
+        dense: np.ndarray,
+        metadatas: Sequence[Mapping[str, Any]] | None = None,
+        terms: np.ndarray | None = None,
+        impacts: np.ndarray | None = None,
+        colbert: np.ndarray | None = None,
+        tf: np.ndarray | None = None,
+        dl: np.ndarray | None = None,
+    ):
+        """Append rows. Existing ids are updated in place (upsert)."""
+        cfg = self.config
+        dense = np.asarray(dense, np.float16)
+        assert dense.shape == (len(chunk_ids), cfg.dim), dense.shape
+        metadatas = metadatas or [{} for _ in chunk_ids]
+        if terms is None:
+            terms = np.full((len(chunk_ids), cfg.ell_width), -1, np.int32)
+        terms = np.asarray(terms, np.int32)
+        if impacts is None:  # terms without impacts: zero contribution
+            impacts = np.zeros(terms.shape, np.float32)
+        impacts = np.asarray(impacts, np.float32)
+        tf = (np.zeros(terms.shape, np.int32) if tf is None
+              else np.asarray(tf, np.int32))
+        dl = (np.zeros((len(chunk_ids),), np.int32) if dl is None
+              else np.asarray(dl, np.int32))
+
+        fresh_rows, fresh_meta = [], []
+        batch_pos: dict[str, int] = {}  # id → row WITHIN this batch
+        for row, cid in enumerate(chunk_ids):
+            pos = self._id_pos.get(cid)
+            if pos is None and cid in batch_pos:
+                # duplicate id inside one batch: the later occurrence wins
+                dup_idx = fresh_rows.index(batch_pos[cid])
+                fresh_rows[dup_idx] = row
+                fresh_meta[dup_idx] = metadatas[row]
+                batch_pos[cid] = row
+                continue
+            if pos is not None:  # in-place update
+                self._dense[pos] = dense[row]
+                self._terms[pos] = terms[row]
+                self._impacts[pos] = impacts[row]
+                self._tf[pos] = tf[row]
+                self._dl[pos] = dl[row]
+                if self._colbert is not None:
+                    self._colbert[pos] = (
+                        colbert[row] if colbert is not None else 0
+                    )
+                self._alive[pos] = True
+                self.meta.update(pos, metadatas[row])
+            else:
+                batch_pos[cid] = row
+                fresh_rows.append(row)
+                fresh_meta.append(metadatas[row])
+
+        if fresh_rows:
+            sel = np.asarray(fresh_rows)
+            base = len(self.ids)
+            for row in fresh_rows:
+                self._id_pos[chunk_ids[row]] = base
+                self.ids.append(chunk_ids[row])
+                base += 1
+            self._dense = np.concatenate([self._dense, dense[sel]])
+            self._terms = np.concatenate([self._terms, terms[sel]])
+            self._impacts = np.concatenate([self._impacts, impacts[sel]])
+            self._tf = np.concatenate([self._tf, tf[sel]])
+            self._dl = np.concatenate([self._dl, dl[sel]])
+            if self._colbert is not None:
+                cb = (
+                    np.asarray(colbert, np.float16)[sel]
+                    if colbert is not None
+                    else np.zeros(
+                        (len(sel), cfg.colbert_len, cfg.colbert_dim),
+                        np.float16,
+                    )
+                )
+                self._colbert = np.concatenate([self._colbert, cb])
+            self._alive = np.concatenate(
+                [self._alive, np.ones((len(sel),), bool)]
+            )
+            self.meta.append(fresh_meta)
+        self._device = None  # invalidate device image
+
+    def delete(self, chunk_ids: Sequence[str]):
+        """Tombstone rows (device mask; storage reclaimed on compact())."""
+        for cid in chunk_ids:
+            pos = self._id_pos.get(cid)
+            if pos is not None:
+                self._alive[pos] = False
+        self._device = None
+
+    def recompute_impacts(self, stats):
+        """Re-derive every row's BM25 impacts from stored (tf, dl) under
+        new stats and adopt `stats` as the index's query-side stats."""
+        from ..retrieval.bm25 import impacts_from_tf
+
+        if self.n_rows:
+            self._impacts = impacts_from_tf(self._tf, self._dl, stats)
+        self.bm25_stats = stats
+        self._device = None
+
+    def compact(self):
+        keep = np.nonzero(self._alive)[0]
+        self._dense = self._dense[keep]
+        self._terms = self._terms[keep]
+        self._impacts = self._impacts[keep]
+        self._tf = self._tf[keep]
+        self._dl = self._dl[keep]
+        if self._colbert is not None:
+            self._colbert = self._colbert[keep]
+        kept_ids = [self.ids[i] for i in keep]
+        kept_docs = [self.meta._docs[i] for i in keep]
+        self.ids = kept_ids
+        self._id_pos = {cid: i for i, cid in enumerate(kept_ids)}
+        meta = MetadataStore()
+        meta.append(kept_docs)
+        self.meta = meta
+        self._alive = np.ones((len(keep),), bool)
+        self._device = None
+
+    # ------------------------------------------------------------ device
+    def _n_pad(self) -> int:
+        blk = self.config.row_block
+        return max(blk, -(-self.n_rows // blk) * blk)
+
+    def device_image(self):
+        if self._device is not None:
+            return self._device
+        cfg = self.config
+        n, n_pad = self.n_rows, self._n_pad()
+        embs = np.zeros((n_pad, cfg.dim), np.float32)
+        embs[:n] = self._dense.astype(np.float32)
+        terms = np.full((n_pad, cfg.ell_width), -1, np.int32)
+        terms[:n] = self._terms
+        impacts = np.zeros((n_pad, cfg.ell_width), np.float32)
+        impacts[:n] = self._impacts
+        alive = np.zeros((n_pad,), np.float32)
+        alive[:n] = self._alive.astype(np.float32)
+        alive_penalty = (alive - 1.0) * 1e4  # 0 for live, -1e4 otherwise
+
+        def put(x):
+            return torch.from_numpy(x).to(self.device)
+
+        self._device = {
+            "embs": put(embs).to(cfg.device_dtype),
+            "terms": put(terms),
+            "impacts": put(impacts),
+            "alive_penalty": put(alive_penalty),
+            "n_pad": n_pad,
+        }
+        return self._device
+
+    # ------------------------------------------------------------ search
+    def _mask_vector(self, where) -> np.ndarray | None:
+        mask = compile_filter(self.meta, where)
+        alive = self._alive
+        if mask is None:
+            if alive.all():
+                return None
+            mask = alive.copy()
+        else:
+            mask = mask & alive
+        return mask
+
+    def _combined_penalty(self, mask, dev):
+        """[n_pad] additive score penalty: 0 for selectable rows, −1e4 for
+        padding, tombstones, and filtered-out rows."""
+        if mask is None:
+            return dev["alive_penalty"]
+        m = np.full((dev["n_pad"],), -1e4, np.float32)
+        m[: len(mask)] = np.where(mask, 0.0, -1e4)
+        return torch.from_numpy(m).to(self.device)
+
+    def _finish(self, s, i, k):
+        """Any slot whose score carries the −1e4 penalty (or points past
+        the live corpus) becomes (-inf, -1)."""
+        s, i = _host(s), _host(i)
+        i = np.where((i >= 0) & (i < self.n_rows) & (s > -5e3), i, -1)
+        s = np.where(i >= 0, s, NEG_INF).astype(np.float32)
+        return s, i
+
+    def _queries(self, queries):
+        q = torch.from_numpy(np.asarray(queries, np.float32))
+        return q.to(self.device).to(self.config.device_dtype)
+
+    def search_dense(self, queries: np.ndarray, k: int, where=None,
+                     exact: bool = False):
+        """queries [Q, D] (L2-normalized) → (scores [Q,k], ids [Q,k] int
+        rows; -1 = empty). Filter `where` is a ChromaDB-style tree."""
+        dev = self.device_image()
+        mask = self._mask_vector(where)
+        q = self._queries(queries)
+        if mask is not None:
+            if exact:
+                pen = self._combined_penalty(mask, dev)
+                s, i = blocked_topk(q, dev["embs"], k, penalty=pen)
+                return self._finish(s, i, k)
+            return self._masked_dense(q, k, mask)
+        if exact:
+            s, i = blocked_topk(q, dev["embs"], k,
+                                penalty=dev["alive_penalty"])
+            s, i = _host(s), _host(i)
+            ok = (i >= 0) & (i < self.n_rows) & (s > -5e3)
+            i = np.where(ok, i, -1)
+            s = np.where(ok, s, NEG_INF).astype(np.float32)
+            return s, i
+        s, i = approx_topk(q, dev["embs"], k, penalty=dev["alive_penalty"])
+        s, i = _host(s), _host(i)
+        i = np.where((i >= 0) & (i < self.n_rows), i, -1)
+        return self._strip_dead(s, i, k)
+
+    def _masked_dense(self, q, k: int, mask: np.ndarray):
+        """Filtered dense search: the mask folds into a score penalty and
+        the approx selector runs unchanged."""
+        dev = self.device_image()
+        penalty = self._combined_penalty(mask, dev)
+        s, i = approx_topk(q, dev["embs"], k, penalty=penalty)
+        s, i = _host(s), _host(i)
+        i = np.where((i >= 0) & (i < self.n_rows) & (s > -5e3), i, -1)
+        s = np.where(i >= 0, s, NEG_INF)
+        return s, i
+
+    def search_sparse(self, q_terms: np.ndarray, q_weights: np.ndarray,
+                      k: int, where=None):
+        """Lexical top-k (BM25 / learned sparse). q padding id: -2.
+
+        Unfiltered: the ELL top-k kernel over the whole padded image.
+        Filtered: exact full scores, then mask and a stable host top-k."""
+        dev = self.device_image()
+        mask = self._mask_vector(where)
+        heavy_query = q_terms.shape[0] * q_terms.shape[1] > 128
+        if self.n_rows > self.config.postings_threshold or heavy_query:
+            raise NotImplementedError(
+                "the postings engine (corpora above postings_threshold or "
+                "Q·T > 128) is " + _NOT_PORTED.format(4))
+        qt = torch.from_numpy(np.asarray(q_terms, np.int32)).to(self.device)
+        qw = torch.from_numpy(np.asarray(q_weights, np.float32)).to(
+            self.device)
+        if mask is None:
+            s, i = ell_topk(dev["terms"], dev["impacts"], qt, qw, k=k)
+            s, i = _host(s), _host(i)
+            i = np.where((i >= 0) & (i < self.n_rows), i, -1)
+            return self._strip_dead(s, i, k)
+        # masked, small corpus: exact full scores then mask+topk
+        s = _host(ell_scores(dev["terms"], dev["impacts"], qt, qw))
+        s = s[:, : self.n_rows]
+        s = np.where(mask[None, :], s, NEG_INF)
+        idx = np.argsort(-s, axis=1, kind="stable")[:, :k]
+        top = np.take_along_axis(s, idx, axis=1)
+        idx = np.where(top > NEG_INF / 2, idx, -1).astype(np.int32)
+        if idx.shape[1] < k:  # corpus smaller than k: fixed width
+            pad = k - idx.shape[1]
+            top = np.pad(top, ((0, 0), (0, pad)), constant_values=NEG_INF)
+            idx = np.pad(idx, ((0, 0), (0, pad)), constant_values=-1)
+        return top.astype(np.float32), idx
+
+    def _strip_dead(self, s, i, k):
+        """Drop tombstoned rows from (already unfiltered) results."""
+        if self._alive.all():
+            return s, i
+        dead = ~self._alive
+        bad = (i >= 0) & dead[np.clip(i, 0, self.n_rows - 1)]
+        s = np.where(bad, NEG_INF, s)
+        i = np.where(bad, -1, i)
+        order = np.argsort(-s, axis=1, kind="stable")
+        return np.take_along_axis(s, order, axis=1), np.take_along_axis(
+            i, order, axis=1
+        )
+
+    def chunk_ids(self, rows) -> list[str | None]:
+        return [self.ids[r] if r >= 0 else None for r in np.asarray(rows)]
+
+    # -------------------------------------------------------- checkpoint
+    def save(self, directory):
+        d = pathlib.Path(directory)
+        d.mkdir(parents=True, exist_ok=True)
+        np.savez(
+            d / "arrays.npz",
+            dense=self._dense,
+            terms=self._terms,
+            impacts=self._impacts,
+            tf=self._tf,
+            dl=self._dl,
+            alive=self._alive,
+            **({"colbert": self._colbert} if self._colbert is not None else {}),
+        )
+        manifest = {
+            "config": {
+                f.name: getattr(self.config, f.name)
+                for f in dataclasses.fields(self.config)
+                if f.name != "device_dtype"  # a dtype object, not JSON
+            },
+            "ids": self.ids,
+            "n_rows": self.n_rows,
+        }
+        (d / "manifest.json").write_text(json.dumps(manifest))
+        self.meta.save(d / "metadata.json")
+        if self.bm25_stats is not None:
+            (d / "bm25.json").write_text(
+                json.dumps(self.bm25_stats.to_dict())
+            )
+
+    @classmethod
+    def load(cls, directory, device=None) -> "DeviceIndex":
+        d = pathlib.Path(directory)
+        manifest = json.loads((d / "manifest.json").read_text())
+        cfg = IndexConfig(**manifest["config"])
+        idx = cls(cfg, device=device)
+        arrays = np.load(d / "arrays.npz")
+        idx._dense = arrays["dense"]
+        idx._terms = arrays["terms"]
+        idx._impacts = arrays["impacts"]
+        idx._alive = arrays["alive"]
+        n = idx._terms.shape[0]
+        idx._tf = (arrays["tf"] if "tf" in arrays
+                   else np.zeros_like(idx._terms))
+        idx._dl = (arrays["dl"] if "dl" in arrays
+                   else np.zeros((n,), np.int32))
+        if "colbert" in arrays:
+            idx._colbert = arrays["colbert"]
+        idx.ids = list(manifest["ids"])
+        idx._id_pos = {cid: i for i, cid in enumerate(idx.ids)}
+        idx.meta = MetadataStore.load(d / "metadata.json")
+        bm25_path = d / "bm25.json"
+        if bm25_path.exists():
+            from ..retrieval.bm25 import Bm25Stats
+
+            idx.bm25_stats = Bm25Stats.from_dict(
+                json.loads(bm25_path.read_text())
+            )
+        return idx
+
+
+def _host(t) -> np.ndarray:
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)

@@ -1,0 +1,75 @@
+"""BGE-M3-style multi-representation embedder in PyTorch.
+
+Port of `rag_dpo_tpu/models/bge_m3.py`: one forward yields
+
+* dense   — L2-normalized CLS hidden state               [B, H]
+* sparse  — per-token lexical weight relu(w·h_t)          [B, S]
+* colbert — per-token projected vectors, L2-normalized    [B, S, Dc]
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from .encoder import EncoderConfig, TransformerEncoder
+
+
+@dataclasses.dataclass(frozen=True)
+class BgeM3Config:
+    encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
+    colbert_dim: int = 1024
+    with_sparse: bool = True
+    with_colbert: bool = True
+
+    @classmethod
+    def tiny(cls, **kw) -> "BgeM3Config":
+        return cls(encoder=EncoderConfig.tiny(), colbert_dim=32, **kw)
+
+
+@dataclasses.dataclass
+class M3Output:
+    dense: Any          # [B, H]  L2-normalized
+    sparse: Any | None  # [B, S]  ≥0 token weights (0 at padding)
+    colbert: Any | None  # [B, S, Dc] L2-normalized, zeroed at padding
+
+
+def _l2norm(x, dim=-1, eps=1e-12):
+    xf = x.float()
+    n = torch.sqrt(torch.sum(xf * xf, dim=dim, keepdim=True))
+    return (xf / n.clamp_min(eps)).to(x.dtype)
+
+
+class BgeM3Model(nn.Module):
+    def __init__(self, config: BgeM3Config):
+        super().__init__()
+        self.config = config
+        h = config.encoder.hidden_size
+        self.encoder = TransformerEncoder(config.encoder)
+        if config.with_sparse:
+            self.sparse_head = nn.Linear(h, 1)
+        if config.with_colbert:
+            self.colbert_head = nn.Linear(h, config.colbert_dim)
+
+    def forward(self, input_ids, lengths=None) -> M3Output:
+        cfg = self.config
+        if lengths is None:
+            lengths = (input_ids != cfg.encoder.pad_token_id).sum(dim=1)
+        hidden = self.encoder(input_ids, lengths)
+        s = hidden.shape[1]
+        valid = (torch.arange(s, device=hidden.device)[None, :]
+                 < lengths.to(hidden.device)[:, None])  # [B, S]
+
+        dense = _l2norm(hidden[:, 0, :])  # CLS
+        sparse = None
+        if cfg.with_sparse:
+            w = self.sparse_head(hidden)[..., 0].float().relu()
+            sparse = torch.where(valid, w, 0.0)
+        colbert = None
+        if cfg.with_colbert:
+            cv = _l2norm(self.colbert_head(hidden))
+            colbert = torch.where(valid[:, :, None], cv, 0.0)
+        return M3Output(dense=dense, sparse=sparse, colbert=colbert)

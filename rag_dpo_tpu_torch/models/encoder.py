@@ -1,0 +1,202 @@
+"""Transformer encoder backbone (XLM-RoBERTa architecture) in PyTorch.
+
+Port of `rag_dpo_tpu/models/encoder.py`. Module names follow the Flax scope
+names (`layer_{i}.attention.query`, `attention_norm`, `intermediate`,
+`mlp_output`, `output_norm`, …) so a Flax parameter tree maps onto the state
+dict one to one (`models.convert.load_flax_params`).
+
+Numerics kept from the reference: activations in `config.dtype` (f32 by
+default), LayerNorm statistics in f32 with Flax's fast variance
+(E[x²] − E[x]², floored at 0) and a cast back, exact-erf GELU, RoBERTa
+positions counted from the pad id. Attention goes through the flash kernel
+(`ops.flash_attention`) unless `use_flash_attention` is off, where it takes
+the plain softmax reference, as the JAX encoder does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from ..ops.flash_attention import attention_reference, flash_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    vocab_size: int = 250_002          # XLM-RoBERTa vocabulary
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    max_position_embeddings: int = 8194
+    type_vocab_size: int = 1
+    layer_norm_eps: float = 1e-5
+    pad_token_id: int = 1
+    dtype: torch.dtype = torch.float32
+    use_flash_attention: bool = True
+    # kept for config parity with the JAX package; the CUDA kernel picks
+    # its own 64-row tiles
+    flash_block_q: int = 512
+    flash_block_k: int = 512
+    # 'flash', 'reference', or 'auto' (flash iff use_flash_attention);
+    # 'ring' (context parallelism) belongs to the multi-GPU slice
+    attention_impl: str = "auto"
+    remat: bool = False                # training only (not ported yet)
+
+    @classmethod
+    def tiny(cls, **kw) -> "EncoderConfig":
+        """Small config for tests / synthetic corpora."""
+        defaults = dict(
+            vocab_size=1024, hidden_size=64, num_layers=2, num_heads=4,
+            intermediate_size=128, max_position_embeddings=514,
+        )
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @classmethod
+    def bge_m3(cls, **kw) -> "EncoderConfig":
+        """XLM-RoBERTa-large — the BGE-M3 backbone (568M params)."""
+        return cls(**kw)
+
+
+def position_ids_from_inputs(input_ids, pad_token_id: int):
+    """RoBERTa-style positions: pad stays at pad_id, others count from it."""
+    mask = (input_ids != pad_token_id).to(torch.int64)
+    return torch.cumsum(mask, dim=1) * mask + pad_token_id
+
+
+class LayerNorm(nn.Module):
+    """Flax `nn.LayerNorm(dtype=f32)`: f32 statistics with the fast
+    variance, y = (x − μ)·(rsqrt(σ² + ε)·weight) + bias."""
+
+    def __init__(self, size: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(size))
+        self.bias = nn.Parameter(torch.zeros(size))
+
+    def forward(self, x):
+        x = x.float()
+        mu = x.mean(dim=-1, keepdim=True)
+        var = ((x * x).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return (x - mu) * mul + self.bias.float()
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, config: EncoderConfig):
+        super().__init__()
+        h = config.hidden_size
+        self.config = config
+        self.query = nn.Linear(h, h)
+        self.key = nn.Linear(h, h)
+        self.value = nn.Linear(h, h)
+        self.output = nn.Linear(h, h)
+
+    def forward(self, hidden, lengths):
+        cfg = self.config
+        b, s, h = hidden.shape
+        nh = cfg.num_heads
+        dh = h // nh
+
+        def heads(x):
+            return x.reshape(b, s, nh, dh).transpose(1, 2)
+
+        q, k, v = (heads(lin(hidden)) for lin in
+                   (self.query, self.key, self.value))
+        impl = cfg.attention_impl
+        if impl == "auto":
+            impl = "flash" if cfg.use_flash_attention else "reference"
+        if impl == "flash":
+            ctx = flash_attention(q, k, v, lengths)
+        elif impl == "reference":
+            ctx = attention_reference(q, k, v, lengths)
+        else:
+            raise NotImplementedError(
+                f"attention_impl={impl!r}: ring attention belongs to the "
+                "multi-GPU slice (ROADMAP, port queue item 9)")
+        ctx = ctx.transpose(1, 2).reshape(b, s, h)
+        return self.output(ctx)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, config: EncoderConfig):
+        super().__init__()
+        self.config = config
+        eps = config.layer_norm_eps
+        self.attention = SelfAttention(config)
+        self.attention_norm = LayerNorm(config.hidden_size, eps)
+        self.intermediate = nn.Linear(config.hidden_size,
+                                      config.intermediate_size)
+        self.mlp_output = nn.Linear(config.intermediate_size,
+                                    config.hidden_size)
+        self.output_norm = LayerNorm(config.hidden_size, eps)
+
+    def forward(self, hidden, lengths):
+        dtype = self.config.dtype
+        attn_out = self.attention(hidden, lengths)
+        hidden = self.attention_norm(hidden + attn_out).to(dtype)
+        mlp = nn.functional.gelu(self.intermediate(hidden), approximate="none")
+        mlp = self.mlp_output(mlp)
+        return self.output_norm(hidden + mlp).to(dtype)
+
+
+class TransformerEncoder(nn.Module):
+    """Post-LN encoder; returns final hidden states [B, S, H]."""
+
+    def __init__(self, config: EncoderConfig):
+        super().__init__()
+        if config.dtype != torch.float32:
+            raise NotImplementedError(
+                "the port runs encoders in f32, the reference default; "
+                "bf16 activations are not wired yet")
+        self.config = config
+        h = config.hidden_size
+        self.word_embeddings = nn.Embedding(config.vocab_size, h)
+        self.position_embeddings = nn.Embedding(
+            config.max_position_embeddings, h)
+        self.token_type_embeddings = nn.Embedding(config.type_vocab_size, h)
+        self.embeddings_norm = LayerNorm(h, config.layer_norm_eps)
+        for i in range(config.num_layers):
+            self.add_module(f"layer_{i}", EncoderLayer(config))
+
+    def layers(self):
+        return [getattr(self, f"layer_{i}")
+                for i in range(self.config.num_layers)]
+
+    def forward(self, input_ids, lengths=None):
+        cfg = self.config
+        if lengths is None:
+            lengths = (input_ids != cfg.pad_token_id).sum(dim=1)
+        lengths = lengths.to(torch.int32)
+        pos_ids = position_ids_from_inputs(input_ids, cfg.pad_token_id)
+        emb = (self.word_embeddings(input_ids)
+               + self.position_embeddings(pos_ids)
+               + self.token_type_embeddings(torch.zeros_like(input_ids)))
+        hidden = self.embeddings_norm(emb).to(cfg.dtype)
+        for layer in self.layers():
+            hidden = layer(hidden, lengths)
+        return hidden
+
+
+def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random init with the Flax defaults' distributions: Dense and
+    Embed weights normal with std 1/sqrt(fan_in) (lecun normal and Flax's
+    embed init; Flax truncates at 2σ, this does not), biases 0, LayerNorm
+    weight 1. Different numbers than Flax's threefry from the same seed
+    (ROADMAP C-3); parity tests load JAX params instead."""
+    with torch.no_grad():
+        for sub in module.modules():
+            if isinstance(sub, nn.Linear):
+                sub.weight.normal_(0.0, sub.in_features ** -0.5,
+                                   generator=generator)
+                sub.bias.zero_()
+            elif isinstance(sub, nn.Embedding):
+                sub.weight.normal_(0.0, sub.embedding_dim ** -0.5,
+                                   generator=generator)
+            elif isinstance(sub, LayerNorm):
+                sub.weight.fill_(1.0)
+                sub.bias.zero_()
+    return module

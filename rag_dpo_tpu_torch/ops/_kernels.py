@@ -1,0 +1,135 @@
+"""Build and bind the hand-written CUDA kernels in `rag_dpo_tpu_torch/csrc/`.
+
+Each `csrc/<name>.cu` exposes a plain C interface. At first use it is
+compiled with `nvcc` for Hopper (`sm_90a`) into a shared library under
+`rag_dpo_tpu_torch/build/`, named after a hash of its source and flags (so
+an edited source rebuilds), and loaded with `ctypes`. Pointers and the
+current stream travel as `c_void_p`; every C entry point returns the
+`cudaGetLastError()` of its launch, which `check` turns into an exception.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port on a machine without `nvcc` or a card.
+
+Launch counters: a wrapper adds one to `LAUNCHES[name]` each time it
+launches its kernel, and a plain twin adds one to `PLAIN_ON_CUDA[name]`
+each time it runs on a CUDA tensor, so a run can show which path it took.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+KERNELS = ("flash_fwd", "ell_topk")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+PLAIN_ON_CUDA: dict[str, int] = {name: 0 for name in KERNELS}
+# ptxas register / shared-memory report of each build, for the smoke log
+BUILD_LOGS: dict[str, str] = {}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each library's entry point (all return a cudaError_t)
+SIGNATURES = {
+    # dtype, q, k, v, lengths, out, lse, B, H, S, Dh, scale, stream
+    "flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # terms, impacts, q_terms, q_weights, N, L, Q, T, k,
+    # cand_s, cand_i, out_s, out_i, stream
+    "ell_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_counts() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+        PLAIN_ON_CUDA[name] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = pathlib.Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of rag_dpo_tpu_torch build "
+            "only where the CUDA toolkit is installed")
+    return found
+
+
+def library_path(name: str) -> pathlib.Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(name: str) -> pathlib.Path:
+    """Compile `csrc/<name>.cu` unless a library of the same hash exists."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOGS[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def build_all() -> float:
+    """Build (or find) every kernel library; returns the seconds taken."""
+    t0 = time.perf_counter()
+    for name in KERNELS:
+        load(name)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = SIGNATURES[name]
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.kernel_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,129 @@
+"""Sparse lexical (BM25 / learned-impact) scoring over an ELL corpus.
+
+    doc_terms   [N, L] int32  — per-chunk term ids, −1 padded
+    doc_impacts [N, L] f32    — precomputed per-term BM25 impact
+    q_terms     [Q, T] int32  — query term ids, −2 padded
+    q_weights   [Q, T] f32    — per-term weights (IDF)
+
+`ell_topk` is the port of the JAX package's Pallas `ell_topk`: on CUDA
+tensors it launches the hand-written kernel in `csrc/ell_topk.cu`, on CPU
+tensors it runs `ell_topk_plain`. Both return the reference's exact top-k,
+including its order among equal scores (`topk.streaming_topk_reference`);
+zero-score rows stay ranked and fill the remaining slots.
+
+`ell_scores` (full [Q, N] scores, for the masked search path) is plain
+torch, as in the JAX package, where it is an XLA scan.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _kernels
+from .topk import NEG_INF, streaming_topk_reference
+
+
+def ell_scores_reference(doc_terms, doc_impacts, q_terms, q_weights):
+    """Oracle: [N, L], [N, L], [Q, T], [Q, T] → [Q, N] f32 scores."""
+    match = doc_terms[None, :, :, None] == q_terms[:, None, None, :]
+    contrib = (match * doc_impacts[None, :, :, None]
+               * q_weights[:, None, None, :])
+    return contrib.sum(dim=(2, 3))
+
+
+def _fma(a, b, c):
+    """f32 a·b + c with one rounding: the product of two f32 values is
+    exact in f64, so only the (practically never tied) f64 sum rounds
+    twice."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def ell_scores(doc_terms, doc_impacts, q_terms, q_weights):
+    """Full [Q, N] lexical scores, summed term by term in t order like the
+    reference's `_ell_score_block`, with the fused multiply-adds XLA's CPU
+    compiler puts into that sum: fma(w0, h0, w1·h1), then fma(wt, ht, acc).
+    Matching them makes the scores, and so the tie order, bit-exact."""
+    imp = doc_impacts.float()
+    hits = []
+    for t in range(q_terms.shape[1]):
+        match = doc_terms[None, :, :] == q_terms[:, t, None, None]  # [Q,N,L]
+        # ≤ one slot matches per (row, term), so this sum is exact
+        hits.append((q_weights[:, t, None].float(),
+                     torch.where(match, imp[None], 0.0).sum(dim=2)))
+    (w0, h0), rest = hits[0], hits[1:]
+    if not rest:
+        return w0 * h0
+    (w1, h1), rest = rest[0], rest[1:]
+    acc = _fma(w0, h0, w1 * h1)
+    for w, h in rest:
+        acc = _fma(w, h, acc)
+    return acc
+
+
+def ell_topk_plain(doc_terms, doc_impacts, q_terms, q_weights, k: int,
+                   *, block_n: int = 1024):
+    """Plain twin of the ELL kernel: full scores, then the reference's
+    streaming top-k order. Returns [Q, min(k, N)]."""
+    if doc_terms.is_cuda:
+        _kernels.PLAIN_ON_CUDA["ell_topk"] += 1
+    n = doc_terms.shape[0]
+    s = ell_scores(doc_terms, doc_impacts, q_terms, q_weights)
+    return streaming_topk_reference(s, min(k, n), block_n=block_n, n_valid=n)
+
+
+def _ell_topk_kernel(doc_terms, doc_impacts, q_terms, q_weights, k: int,
+                     block_n: int):
+    n, l = doc_terms.shape
+    q, t = q_terms.shape
+    if block_n != 1024:
+        raise ValueError("the CUDA ELL kernel streams 1024-row blocks")
+    if not 1 <= k <= block_n:
+        raise ValueError(f"the CUDA ELL kernel takes 1 ≤ k ≤ {block_n}")
+    if not 1 <= t <= 64:
+        raise ValueError("the CUDA ELL kernel takes 1 to 64 query terms")
+    if doc_impacts.shape != (n, l) or q_weights.shape != (q, t):
+        raise ValueError("impacts must match terms, and weights q_terms, "
+                         "in shape")
+    dev = doc_terms.device
+    args = []
+    for x, dtype in ((doc_terms, torch.int32), (doc_impacts, torch.float32),
+                     (q_terms, torch.int32), (q_weights, torch.float32)):
+        if x.device != dev:
+            raise ValueError("ELL inputs must share one device")
+        args.append(x.to(dtype).contiguous())
+    nb = -(-n // block_n)
+    cand_s = torch.empty((q, nb, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((q, nb, k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+    lib = _kernels.load("ell_topk")
+    with torch.cuda.device(dev):
+        err = lib.ell_topk(
+            *(_kernels.ptr(x) for x in args), n, l, q, t, k,
+            _kernels.ptr(cand_s), _kernels.ptr(cand_i),
+            _kernels.ptr(out_s), _kernels.ptr(out_i),
+            _kernels.stream_of(doc_terms))
+    _kernels.check(lib, err, "ell_topk")
+    _kernels.LAUNCHES["ell_topk"] += 1
+    return out_s, out_i
+
+
+def ell_topk(doc_terms, doc_impacts, q_terms, q_weights, k: int,
+             *, block_n: int = 1024):
+    """Top-k lexical retrieval: ([Q, k] f32 scores, [Q, k] int32 ids).
+
+    Zero-score documents are still ranked (BM25 semantics allow ties at 0);
+    slots beyond the corpus are id −1 / score −1e30."""
+    n = doc_terms.shape[0]
+    k_eff = min(k, n)
+    if doc_terms.is_cuda:
+        out_s, out_i = _ell_topk_kernel(doc_terms, doc_impacts, q_terms,
+                                        q_weights, k_eff, block_n)
+    else:
+        out_s, out_i = ell_topk_plain(doc_terms, doc_impacts, q_terms,
+                                      q_weights, k_eff, block_n=block_n)
+    if k_eff < k:
+        pad = k - k_eff
+        out_s = torch.nn.functional.pad(out_s, (0, pad), value=NEG_INF)
+        out_i = torch.nn.functional.pad(out_i, (0, pad), value=-1)
+    return out_s, out_i

@@ -1,0 +1,154 @@
+"""Embedding provider: batched BGE-M3 encode on one torch device.
+
+Port of `rag_dpo_tpu/providers/embedding.py` with the same batch buckets
+(1, 8, 64), the same sequence buckets (`tokenize.base.bucket_length`), and
+the same `embed` / `embed_queries` outputs. The TPU-only tiny-fetch sync is
+gone: the host copy of the outputs is the synchronisation. Coalesced query
+batching belongs to the serving slice (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..models import BgeM3Config, BgeM3Model
+from ..models.convert import load_flax_params
+from ..models.encoder import init_random_
+from ..ops import default_device
+from ..tokenize import HashedTokenizer, Tokenizer
+from ..tokenize.base import bucket_length
+
+
+@dataclasses.dataclass
+class EmbedderConfig:
+    model: BgeM3Config = dataclasses.field(default_factory=BgeM3Config.tiny)
+    batch_size: int = 64
+    max_seq_len: int = 8192
+    query_max_len: int = 512
+    batch_buckets: tuple = (1, 8, 64)
+
+
+class Embedder:
+    """Host-facing encode API over the torch BGE-M3 model.
+
+    `params`: a Flax parameter tree as numpy (e.g. `load_params_npz`);
+    None builds seeded random weights from `rng_seed` on `device`."""
+
+    def __init__(
+        self,
+        config: EmbedderConfig | None = None,
+        params=None,
+        tokenizer: Tokenizer | None = None,
+        rng_seed: int = 0,
+        device=None,
+    ):
+        self.config = config or EmbedderConfig()
+        self.device = default_device(device)
+        # no HF tokenizer lookup: that needs transformers (ROADMAP C-7)
+        self.tokenizer = tokenizer or HashedTokenizer(
+            vocab_size=self.config.model.encoder.vocab_size
+        )
+        self._params = params
+        self._rng_seed = rng_seed
+        self.model: BgeM3Model | None = None
+        # bound in-flight encoder forwards under concurrent callers, as
+        # the JAX provider does: each forward holds its activations
+        self._dispatch_slots = threading.Semaphore(2)
+
+    @property
+    def dim(self) -> int:
+        return self.config.model.encoder.hidden_size
+
+    # ------------------------------------------------------------ weights
+    def load(self) -> BgeM3Model:
+        """Lazy model build: the given Flax params, else seeded random."""
+        if self.model is None:
+            if self._params is not None:
+                model = load_flax_params(BgeM3Model(self.config.model),
+                                         self._params).to(self.device)
+            else:
+                with torch.device(self.device):  # no host-side init pass
+                    model = BgeM3Model(self.config.model)
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(self._rng_seed)
+                init_random_(model, gen)
+            self.model = model.eval()
+        return self.model
+
+    # ------------------------------------------------------------- encode
+    def _batch_bucket(self, b: int) -> int:
+        return next((x for x in self.config.batch_buckets if b <= x), b)
+
+    def _encode_padded(self, texts: Sequence[str], max_len: int):
+        model = self.load()
+        enc = self.tokenizer.encode_batch(texts, max_len)
+        seq = bucket_length(int(enc.lengths.max()) if len(texts) else 8)
+        seq = min(seq, max_len)
+        ids = enc.input_ids[:, :seq]
+        b = len(texts)
+        b_bucket = self._batch_bucket(b)
+        lengths = enc.lengths
+        if b_bucket != b:
+            ids = np.concatenate(
+                [ids, np.full((b_bucket - b, seq),
+                              self.tokenizer.pad_id, np.int32)]
+            )
+            lengths = np.concatenate(
+                [lengths, np.ones((b_bucket - b,), np.int32)]
+            )
+        ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int64))
+        len_t = torch.from_numpy(np.ascontiguousarray(lengths, np.int32))
+        with self._dispatch_slots, torch.inference_mode():
+            out = model(ids_t.to(self.device), len_t.to(self.device))
+        return out, b, enc
+
+    def embed(self, texts: Sequence[str], *, return_sparse: bool = False,
+              return_colbert: bool = False):
+        """Corpus encode → dict with 'dense' [B, H] f32 (+ optional heads).
+
+        Sparse output is aggregated per token id: list of {term_id: weight}
+        (max over repeated tokens, BGE-M3 convention); colbert is a list of
+        [L_i, Dc] arrays cut at true length.
+        """
+        cfg = self.config
+        out_dense, out_sparse, out_colbert = [], [], []
+        for i in range(0, len(texts), cfg.batch_size):
+            batch = list(texts[i : i + cfg.batch_size])
+            out, b, enc = self._encode_padded(batch, cfg.max_seq_len)
+            out_dense.append(out.dense[:b].float().cpu().numpy())
+            if return_sparse and out.sparse is not None:
+                sp = out.sparse[:b].float().cpu().numpy()
+                for row in range(b):
+                    L = int(enc.lengths[row])
+                    weights: dict[int, float] = {}
+                    for t, w in zip(enc.input_ids[row, :L], sp[row, :L]):
+                        t = int(t)
+                        if w <= 0 or t in (
+                            self.tokenizer.cls_id, self.tokenizer.sep_id,
+                            self.tokenizer.pad_id,
+                        ):
+                            continue
+                        weights[t] = max(weights.get(t, 0.0), float(w))
+                    out_sparse.append(weights)
+            if return_colbert and out.colbert is not None:
+                cb = out.colbert[:b].float().cpu().numpy()
+                for row in range(b):
+                    out_colbert.append(cb[row, : int(enc.lengths[row])])
+        result = {"dense": np.concatenate(out_dense) if out_dense
+                  else np.zeros((0, self.dim), np.float32)}
+        if return_sparse:
+            result["sparse"] = out_sparse
+        if return_colbert:
+            result["colbert"] = out_colbert
+        return result
+
+    def embed_queries(self, texts: Sequence[str]) -> np.ndarray:
+        """Query encode (shorter bucket) → [B, H] f32 L2-normalized."""
+        out, b, _ = self._encode_padded(list(texts),
+                                        self.config.query_max_len)
+        return out.dense[:b].float().cpu().numpy()

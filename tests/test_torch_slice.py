@@ -1,0 +1,189 @@
+"""Slice 1 end to end: the port against the JAX package on the hermetic
+synthetic corpus, and the port alone with jax refused at import.
+
+Both stacks use the same exported Flax parameters (tiny encoder in
+reference-attention mode and ELL width 48, as `evals/hermetic.py` builds
+them), so the per-question fused candidate ids must be identical — the
+aggregate metrics of the replay could hide a two-question drift.
+"""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from rag_dpo_tpu import native
+from rag_dpo_tpu.evals.synthetic import ExtractiveFakeLLM as JExtractiveLLM
+from rag_dpo_tpu.evals.synthetic import build_synthetic_corpus
+from rag_dpo_tpu.ingest.indexer import CorpusIndexer as JCorpusIndexer
+from rag_dpo_tpu.models import BgeM3Config as JBgeM3Config
+from rag_dpo_tpu.models import EncoderConfig as JEncoderConfig
+from rag_dpo_tpu.models.convert import load_params_npz
+from rag_dpo_tpu.providers import Embedder as JEmbedder
+from rag_dpo_tpu.providers import EmbedderConfig as JEmbedderConfig
+from rag_dpo_tpu.rag import create_pipeline as j_create_pipeline
+from rag_dpo_tpu.rag.topics import TopicMatcher as JTopicMatcher
+from rag_dpo_tpu.retrieval import HybridRetriever as JHybridRetriever
+from rag_dpo_tpu.retrieval.reranker import (
+    CrossEncoderReranker as JCrossEncoderReranker,
+)
+from rag_dpo_tpu_torch.evals.synthetic import ExtractiveFakeLLM
+from rag_dpo_tpu_torch.ingest import CorpusIndexer
+from rag_dpo_tpu_torch.models import BgeM3Config, EncoderConfig
+from rag_dpo_tpu_torch.providers import Embedder, EmbedderConfig
+from rag_dpo_tpu_torch.rag import create_pipeline
+from rag_dpo_tpu_torch.rag.topics import TopicMatcher
+from rag_dpo_tpu_torch.retrieval import HybridRetriever
+from rag_dpo_tpu_torch.retrieval.reranker import CrossEncoderReranker
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+DATASET = REPO / "rag_dpo_tpu" / "evals" / "data" / "qa_dataset.json"
+TRAINED = REPO / "rag_dpo_tpu" / "evals" / "data" / "trained_encoder_v2.npz"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """Two intra-op threads: each pytest-xdist worker would otherwise start
+    one per core, and oversubscribed, torch's CPU ops run ~10x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _numpy_tree(params):
+    return jax.tree.map(np.asarray, params)
+
+
+@pytest.fixture(scope="module", params=["random-init", "trained"])
+def stacks(request):
+    dataset = json.loads(DATASET.read_text())
+    chunks = build_synthetic_corpus(dataset)
+    tree = None if request.param == "random-init" else load_params_npz(TRAINED)
+    jemb = JEmbedder(JEmbedderConfig(model=JBgeM3Config(
+        encoder=JEncoderConfig.tiny(use_flash_attention=False),
+        colbert_dim=32)), params=tree)
+    emb = Embedder(EmbedderConfig(model=BgeM3Config(
+        encoder=EncoderConfig.tiny(use_flash_attention=False),
+        colbert_dim=32)), params=_numpy_tree(jemb.load()), device="cpu")
+    # the port builds BM25 impacts on the Python path; the JAX package's
+    # C++ runtime rounds them from double and differs in the last ulp on
+    # some rows (ROADMAP C-8), so the JAX side takes the Python path too
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "is_available", lambda: False)
+        jindex, jstats, _ = JCorpusIndexer(jemb, ell_width=48).build(chunks)
+    index, stats, _ = CorpusIndexer(emb, ell_width=48).build(chunks)
+    return dict(kind=request.param, dataset=dataset, jemb=jemb, emb=emb,
+                jindex=jindex, jstats=jstats, index=index, stats=stats)
+
+
+def test_indexes_agree(stacks):
+    j, t = stacks["jindex"], stacks["index"]
+    assert t.ids == j.ids
+    assert t.bm25_stats.vocab == j.bm25_stats.vocab
+    np.testing.assert_array_equal(t._terms, j._terms)
+    np.testing.assert_array_equal(t._impacts, j._impacts)
+    # f16 host rows of unit vectors: within one f16 rounding step
+    np.testing.assert_allclose(t._dense.astype(np.float32),
+                               j._dense.astype(np.float32), atol=1e-3)
+
+
+def test_fused_candidate_ids_identical_for_all_48_questions(stacks):
+    jret = JHybridRetriever(stacks["jindex"], stacks["jemb"],
+                            bm25_stats=stacks["jstats"])
+    ret = HybridRetriever(stacks["index"], stacks["emb"],
+                          bm25_stats=stacks["stats"])
+    assert len(stacks["dataset"]) == 48
+    score_drift = []
+    for item in stacks["dataset"]:
+        q = item["question"]
+        jc = jret.retrieve_candidates(q, n_candidates=40)
+        tc = ret.retrieve_candidates(q, n_candidates=40)
+        assert [c.row for c in tc] == [c.row for c in jc], q
+        if not np.allclose([c.score for c in tc], [c.score for c in jc],
+                           rtol=1e-6, atol=0):
+            score_drift.append(q)
+    # Fused scores are RRF sums of arm ranks. The random-init encoder
+    # maps every chunk within cosine 0.996 of every query, and on one
+    # question two dense scores sit 6e-7 apart: the f32 encoders of the
+    # two frameworks (~1e-6 apart) swap dense ranks 1 and 2 there, which
+    # moves two fused scores but not the fused order. The trained
+    # encoder has no such near-tie.
+    assert len(score_drift) <= (1 if stacks["kind"] == "random-init" else 0)
+
+
+def test_pipeline_answers_and_sources_match(stacks):
+    jrr = JCrossEncoderReranker(topic_matcher=JTopicMatcher(stacks["jemb"]))
+    rr = CrossEncoderReranker(params=_numpy_tree(jrr.load()), device="cpu",
+                              topic_matcher=TopicMatcher(stacks["emb"]))
+    jpipe = j_create_pipeline(stacks["jindex"], stacks["jemb"],
+                              JExtractiveLLM(), bm25_stats=stacks["jstats"],
+                              reranker=jrr)
+    pipe = create_pipeline(stacks["index"], stacks["emb"],
+                           ExtractiveFakeLLM(), bm25_stats=stacks["stats"],
+                           reranker=rr)
+    for item in stacks["dataset"][:4]:
+        jr = jpipe.query(item["question"])
+        r = pipe.query(item["question"])
+        assert r.answer == jr.answer
+        assert r.sources == jr.sources
+        assert r.sources and r.error is None
+
+
+BLOCKED_RUN = textwrap.dedent("""
+    import importlib.abc, json, pathlib, sys, tempfile
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "flax", "transformers",
+                       "rag_dpo_tpu"):
+                raise ImportError(f"refused: {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    from rag_dpo_tpu_torch.bootstrap import build_stack
+    from rag_dpo_tpu_torch.evals.synthetic import (
+        ExtractiveFakeLLM, build_synthetic_corpus)
+    from rag_dpo_tpu_torch.ingest import CorpusIndexer
+    from rag_dpo_tpu_torch.models import BgeM3Config
+    from rag_dpo_tpu_torch.providers import Embedder, EmbedderConfig
+    from rag_dpo_tpu_torch.retrieval.reranker import CrossEncoderReranker
+    from rag_dpo_tpu_torch.utils.paths import default_paths
+
+    dataset = json.loads(pathlib.Path(sys.argv[1]).read_text())
+    emb = Embedder(EmbedderConfig(model=BgeM3Config.tiny()), device="cpu")
+    index, _, _ = CorpusIndexer(emb).build(
+        build_synthetic_corpus(dataset)[:40])
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = default_paths(tmp)
+        index.save(paths.index_dir)
+        stack = build_stack(paths=paths, llm=ExtractiveFakeLLM(),
+                            embedder=emb, reranker=CrossEncoderReranker(
+                                device="cpu"), device="cpu")
+        resp = stack.pipeline.query(dataset[0]["question"])
+    assert resp.sources and resp.error is None, resp
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "flax", "transformers",
+                                  "rag_dpo_tpu")]
+    assert not bad, bad
+    print("OK", len(resp.sources))
+""")
+
+
+def test_port_runs_with_jax_refused_at_import(tmp_path):
+    script = tmp_path / "blocked.py"
+    script.write_text(BLOCKED_RUN)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, str(script), str(DATASET)],
+                          capture_output=True, text=True, env=env,
+                          cwd=tmp_path, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
