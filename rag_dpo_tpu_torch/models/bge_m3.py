@@ -5,6 +5,10 @@ Port of `rag_dpo_tpu/models/bge_m3.py`: one forward yields
 * dense   — L2-normalized CLS hidden state               [B, H]
 * sparse  — per-token lexical weight relu(w·h_t)          [B, S]
 * colbert — per-token projected vectors, L2-normalized    [B, S, Dc]
+
+`dense_only=True` runs the encoder and the dense head alone, as the JAX
+training step's dense-only model does (`train/contrastive.py:141-148`):
+the module keeps its sparse and ColBERT heads, so a checkpoint saves them.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ from typing import Any
 import torch
 from torch import nn
 
-from .encoder import EncoderConfig, TransformerEncoder
+from .convert import load_flax_params
+from .encoder import EncoderConfig, TransformerEncoder, init_random_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +59,8 @@ class BgeM3Model(nn.Module):
         if config.with_colbert:
             self.colbert_head = nn.Linear(h, config.colbert_dim)
 
-    def forward(self, input_ids, lengths=None) -> M3Output:
+    def forward(self, input_ids, lengths=None,
+                dense_only: bool = False) -> M3Output:
         cfg = self.config
         if lengths is None:
             lengths = (input_ids != cfg.encoder.pad_token_id).sum(dim=1)
@@ -65,11 +71,25 @@ class BgeM3Model(nn.Module):
 
         dense = _l2norm(hidden[:, 0, :])  # CLS
         sparse = None
-        if cfg.with_sparse:
+        if cfg.with_sparse and not dense_only:
             w = self.sparse_head(hidden)[..., 0].float().relu()
             sparse = torch.where(valid, w, 0.0)
         colbert = None
-        if cfg.with_colbert:
+        if cfg.with_colbert and not dense_only:
             cv = _l2norm(self.colbert_head(hidden))
             colbert = torch.where(valid[:, :, None], cv, 0.0)
         return M3Output(dense=dense, sparse=sparse, colbert=colbert)
+
+
+def build_bge_m3(config: BgeM3Config, params=None, rng_seed: int = 0,
+                 device="cpu") -> BgeM3Model:
+    """A `BgeM3Model` on `device`: the given Flax tree (numpy leaves, e.g.
+    `load_params_npz`), else seeded random weights made on the device."""
+    device = torch.device(device)
+    if params is not None:
+        return load_flax_params(BgeM3Model(config), params).to(device)
+    with device:  # no host-side init pass
+        model = BgeM3Model(config)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(rng_seed)
+    return init_random_(model, gen)

@@ -1,8 +1,9 @@
-"""Parameter trees of the JAX package → the port's modules.
+"""Parameter trees of the JAX package ↔ the port's modules.
 
 `load_params_npz` reads the npz format both packages share ('/'-joined Flax
-paths, as written by `scripts/convert_weights.py` and the training recipe),
-and `load_flax_params` copies a Flax tree (numpy leaves) into a module:
+paths, as written by `scripts/convert_weights.py` and the training recipe)
+and `save_params_npz` writes it; `load_flax_params` copies a Flax tree
+(numpy leaves) into a module, and `state_dict_to_flax` is its inverse:
 
 * Dense `kernel [in, out]` → Linear `weight [out, in]`;
 * LayerNorm `scale` → `weight`; Embed `embedding` → `weight`;
@@ -16,6 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .encoder import LayerNorm
+
 
 def flatten_params(tree: dict, prefix: str = "") -> dict:
     """Nested param tree → flat {'a/b/c': ndarray} (npz-serializable)."""
@@ -27,6 +30,12 @@ def flatten_params(tree: dict, prefix: str = "") -> dict:
         else:
             out[path] = np.asarray(value)
     return out
+
+
+def save_params_npz(params: dict, path) -> None:
+    """Bare Flax tree (no 'params' level) → npz, as the JAX package saves
+    it; `state_dict_to_flax(model)` gives the tree of a port model."""
+    np.savez(path, **flatten_params(params))
 
 
 def load_params_npz(path) -> dict:
@@ -55,6 +64,30 @@ def flax_to_state_dict(tree: dict) -> dict[str, np.ndarray]:
             leaf = "weight"
         out[".".join([*scope, leaf])] = value
     return out
+
+
+def state_dict_to_flax(module: nn.Module) -> dict:
+    """A module's parameters → the bare Flax tree of the JAX model (numpy
+    f32 leaves): the inverse of `flax_to_state_dict`, which needs the
+    module to tell a LayerNorm weight (`scale`) and an Embedding weight
+    (`embedding`) from a Linear weight (`kernel`, transposed)."""
+    tree: dict = {}
+    for scope, sub in module.named_modules():
+        if isinstance(sub, nn.Linear):
+            leaves = {"kernel": sub.weight.T, "bias": sub.bias}
+        elif isinstance(sub, LayerNorm):
+            leaves = {"scale": sub.weight, "bias": sub.bias}
+        elif isinstance(sub, nn.Embedding):
+            leaves = {"embedding": sub.weight}
+        else:
+            continue
+        node = tree
+        for part in scope.split("."):
+            node = node.setdefault(part, {})
+        for leaf, value in leaves.items():
+            node[leaf] = np.ascontiguousarray(
+                value.detach().float().cpu().numpy())
+    return tree
 
 
 def load_flax_params(module: nn.Module, tree: dict) -> nn.Module:

@@ -8,9 +8,12 @@ dict one to one (`models.convert.load_flax_params`).
 Numerics kept from the reference: activations in `config.dtype` (f32 by
 default), LayerNorm statistics in f32 with Flax's fast variance
 (E[x²] − E[x]², floored at 0) and a cast back, exact-erf GELU, RoBERTa
-positions counted from the pad id. Attention goes through the flash kernel
-(`ops.flash_attention`) unless `use_flash_attention` is off, where it takes
-the plain softmax reference, as the JAX encoder does.
+positions counted from the pad id. Attention goes through the flash kernels
+(`ops.flash_attention_bwd.flash_attention_fused`: the forward kernel, and
+the backward kernels when a gradient is asked for) unless
+`use_flash_attention` is off, where it takes the plain softmax reference,
+as the JAX encoder does. `remat` recomputes each layer in the backward pass
+(`torch.utils.checkpoint`), as the JAX encoder's `nn.remat` does.
 """
 
 from __future__ import annotations
@@ -18,9 +21,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
-from ..ops.flash_attention import attention_reference, flash_attention
+from ..ops.flash_attention import attention_reference
+from ..ops.flash_attention_bwd import flash_attention_fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +48,9 @@ class EncoderConfig:
     # 'flash', 'reference', or 'auto' (flash iff use_flash_attention);
     # 'ring' (context parallelism) belongs to the multi-GPU slice
     attention_impl: str = "auto"
-    remat: bool = False                # training only (not ported yet)
+    # recompute each layer in the backward pass: more FLOPs for less
+    # activation memory (training only; a no-op without gradients)
+    remat: bool = False
 
     @classmethod
     def tiny(cls, **kw) -> "EncoderConfig":
@@ -110,7 +117,7 @@ class SelfAttention(nn.Module):
         if impl == "auto":
             impl = "flash" if cfg.use_flash_attention else "reference"
         if impl == "flash":
-            ctx = flash_attention(q, k, v, lengths)
+            ctx = flash_attention_fused(q, k, v, lengths)
         elif impl == "reference":
             ctx = attention_reference(q, k, v, lengths)
         else:
@@ -151,7 +158,8 @@ class TransformerEncoder(nn.Module):
         if config.dtype != torch.float32:
             raise NotImplementedError(
                 "the port runs encoders in f32, the reference default; "
-                "bf16 activations are not wired yet")
+                "bf16 activations are not wired yet (ROADMAP Queue A "
+                "item 10)")
         self.config = config
         h = config.hidden_size
         self.word_embeddings = nn.Embedding(config.vocab_size, h)
@@ -176,8 +184,13 @@ class TransformerEncoder(nn.Module):
                + self.position_embeddings(pos_ids)
                + self.token_type_embeddings(torch.zeros_like(input_ids)))
         hidden = self.embeddings_norm(emb).to(cfg.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers():
-            hidden = layer(hidden, lengths)
+            if remat:
+                hidden = torch.utils.checkpoint.checkpoint(
+                    layer, hidden, lengths, use_reentrant=False)
+            else:
+                hidden = layer(hidden, lengths)
         return hidden
 
 

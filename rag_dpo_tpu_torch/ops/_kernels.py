@@ -1,11 +1,13 @@
 """Build and bind the hand-written CUDA kernels in `rag_dpo_tpu_torch/csrc/`.
 
-Each `csrc/<name>.cu` exposes a plain C interface. At first use it is
-compiled with `nvcc` for Hopper (`sm_90a`) into a shared library under
-`rag_dpo_tpu_torch/build/`, named after a hash of its source and flags (so
-an edited source rebuilds), and loaded with `ctypes`. Pointers and the
-current stream travel as `c_void_p`; every C entry point returns the
-`cudaGetLastError()` of its launch, which `check` turns into an exception.
+Each `csrc/<source>.cu` exposes a plain C interface: one entry point per
+kernel, named after the kernel (`KERNELS` maps each kernel to its source).
+At first use a source is compiled with `nvcc` for Hopper (`sm_90a`) into a
+shared library under `rag_dpo_tpu_torch/build/`, named after a hash of its
+source and flags (so an edited source rebuilds), and loaded with `ctypes`.
+Pointers and the current stream travel as `c_void_p`; every C entry point
+returns the `cudaGetLastError()` of its launch, which `check` turns into
+an exception.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without `nvcc` or a card.
@@ -25,18 +27,24 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-KERNELS = ("flash_fwd", "ell_topk")
+# kernel (its C entry point) -> the csrc/<source>.cu that defines it
+KERNELS = {"flash_fwd": "flash_fwd", "ell_topk": "ell_topk",
+           "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd"}
+SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 PLAIN_ON_CUDA: dict[str, int] = {name: 0 for name in KERNELS}
-# ptxas register / shared-memory report of each build, for the smoke log
+# ptxas register / shared-memory report and nvcc seconds of each source's
+# build, for the smoke log
 BUILD_LOGS: dict[str, str] = {}
+BUILD_SECONDS: dict[str, float] = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each library's entry point (all return a cudaError_t)
@@ -46,10 +54,16 @@ SIGNATURES = {
     # terms, impacts, q_terms, q_weights, N, L, Q, T, k,
     # cand_s, cand_i, out_s, out_i, stream
     "ell_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # dtype, q, k, v, dout, lengths, lse, dd, dq, B, H, S, Dh, scale, stream
+    "flash_bwd_dq": [_I, *[_P] * 8, _I, _I, _I, _I, _F, _P],
+    # dtype, q, k, v, dout, lengths, lse, dd, dk, dv, B, H, S, Dh, scale,
+    # stream
+    "flash_bwd_dkv": [_I, *[_P] * 9, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.CDLL] = {}  # by source
+_bound: set[str] = set()  # kernels whose entry point has its signature
 
 
 def reset_counts() -> None:
@@ -73,49 +87,58 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> pathlib.Path:
-    src = CSRC_DIR / f"{name}.cu"
+def library_path(source: str) -> pathlib.Path:
+    src = CSRC_DIR / f"{source}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    return BUILD_DIR / f"lib{source}_{digest}.so"
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile `csrc/<name>.cu` unless a library of the same hash exists."""
-    out = library_path(name)
+def build(source: str) -> pathlib.Path:
+    """Compile `csrc/<source>.cu` unless a library of the same hash exists."""
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{source}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOGS[name] = proc.stdout + proc.stderr
+    BUILD_SECONDS[source] = time.perf_counter() - t0
+    BUILD_LOGS[source] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
+            f"nvcc failed for {source}.cu:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return out
 
 
 def build_all() -> float:
-    """Build (or find) every kernel library; returns the seconds taken."""
+    """Build (or find) every kernel library, one nvcc per source, all
+    started together; returns the seconds taken."""
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(build, SOURCES))
     for name in KERNELS:
         load(name)
     return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
+    """The library that holds kernel `name`, with its entry point bound."""
+    source = KERNELS[name]
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(source)))
             lib.kernel_error_string.restype = ctypes.c_char_p
             lib.kernel_error_string.argtypes = [ctypes.c_int]
+            _libs[source] = lib
+        if name not in _bound:
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = SIGNATURES[name]
-            _libs[name] = lib
+            _bound.add(name)
         return lib
 
 

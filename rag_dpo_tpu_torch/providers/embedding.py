@@ -17,8 +17,7 @@ import numpy as np
 import torch
 
 from ..models import BgeM3Config, BgeM3Model
-from ..models.convert import load_flax_params
-from ..models.encoder import init_random_
+from ..models.bge_m3 import build_bge_m3
 from ..ops import default_device
 from ..tokenize import HashedTokenizer, Tokenizer
 from ..tokenize.base import bucket_length
@@ -68,16 +67,8 @@ class Embedder:
     def load(self) -> BgeM3Model:
         """Lazy model build: the given Flax params, else seeded random."""
         if self.model is None:
-            if self._params is not None:
-                model = load_flax_params(BgeM3Model(self.config.model),
-                                         self._params).to(self.device)
-            else:
-                with torch.device(self.device):  # no host-side init pass
-                    model = BgeM3Model(self.config.model)
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(self._rng_seed)
-                init_random_(model, gen)
-            self.model = model.eval()
+            self.model = build_bge_m3(self.config.model, self._params,
+                                      self._rng_seed, self.device).eval()
         return self.model
 
     # ------------------------------------------------------------- encode

@@ -23,6 +23,7 @@ from rag_dpo_tpu_torch.ops.flash_attention import (
     attention_reference,
     flash_attention,
 )
+from rag_dpo_tpu_torch.ops.flash_attention_bwd import flash_attention_fused
 from rag_dpo_tpu_torch.ops.fusion import rrf_fuse, rrf_fuse_reference
 from rag_dpo_tpu_torch.ops.sparse import ell_scores, ell_scores_reference, ell_topk
 from rag_dpo_tpu_torch.ops.topk import (
@@ -253,8 +254,12 @@ def test_wrappers_take_plain_twin_on_cpu_without_launching():
     _kernels.reset_counts()
     x = torch.zeros((1, 1, 4, 16))
     flash_attention(x, x, x)
+    q = x.clone().requires_grad_()
+    flash_attention_fused(q, q, q).sum().backward()  # dq and dk/dv twins
     ell_topk(torch.full((4, 2), -1, dtype=torch.int32), torch.zeros((4, 2)),
              torch.full((1, 2), -2, dtype=torch.int32), torch.zeros((1, 2)),
              k=2)
-    assert _kernels.LAUNCHES == {"flash_fwd": 0, "ell_topk": 0}
-    assert _kernels.PLAIN_ON_CUDA == {"flash_fwd": 0, "ell_topk": 0}
+    none = {name: 0 for name in ("flash_fwd", "ell_topk", "flash_bwd_dq",
+                                 "flash_bwd_dkv")}
+    assert _kernels.LAUNCHES == none
+    assert _kernels.PLAIN_ON_CUDA == none

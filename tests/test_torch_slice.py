@@ -1,5 +1,6 @@
 """Slice 1 end to end: the port against the JAX package on the hermetic
-synthetic corpus, and the port alone with jax refused at import.
+synthetic corpus, and the port alone with jax refused at import (the query
+path, and slice 2's train step, checkpoint and npz export).
 
 Both stacks use the same exported Flax parameters (tiny encoder in
 reference-attention mode and ELL width 48, as `evals/hermetic.py` builds
@@ -143,8 +144,8 @@ BLOCKED_RUN = textwrap.dedent("""
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "flax", "transformers",
-                       "rag_dpo_tpu"):
+            if top in ("jax", "jaxlib", "flax", "optax", "orbax",
+                       "transformers", "rag_dpo_tpu"):
                 raise ImportError(f"refused: {name}")
             return None
 
@@ -152,10 +153,17 @@ BLOCKED_RUN = textwrap.dedent("""
     from rag_dpo_tpu_torch.bootstrap import build_stack
     from rag_dpo_tpu_torch.evals.synthetic import (
         ExtractiveFakeLLM, build_synthetic_corpus)
+    from rag_dpo_tpu_torch.evals.train_encoder import build_training_pairs
     from rag_dpo_tpu_torch.ingest import CorpusIndexer
     from rag_dpo_tpu_torch.models import BgeM3Config
+    from rag_dpo_tpu_torch.models.convert import (
+        load_params_npz, save_params_npz, state_dict_to_flax)
     from rag_dpo_tpu_torch.providers import Embedder, EmbedderConfig
     from rag_dpo_tpu_torch.retrieval.reranker import CrossEncoderReranker
+    from rag_dpo_tpu_torch.train import (
+        TrainConfig, create_train_state, make_train_step)
+    from rag_dpo_tpu_torch.train.checkpoint import TrainCheckpointer
+    from rag_dpo_tpu_torch.train.loop import PairBatcher
     from rag_dpo_tpu_torch.utils.paths import default_paths
 
     dataset = json.loads(pathlib.Path(sys.argv[1]).read_text())
@@ -170,9 +178,29 @@ BLOCKED_RUN = textwrap.dedent("""
                                 device="cpu"), device="cpu")
         resp = stack.pipeline.query(dataset[0]["question"])
     assert resp.sources and resp.error is None, resp
+
+    cfg = TrainConfig(model=BgeM3Config.tiny(), warmup_steps=2)
+    state = create_train_state(cfg, device="cpu")
+    step = make_train_step(cfg, state)
+    pairs = build_training_pairs(build_synthetic_corpus(dataset)[:40])
+    batcher = PairBatcher(pairs, emb.tokenizer, 8, 32)
+    for i in range(2):
+        state, metrics = step(state, batcher.batch_at(i))
+    assert state.step == 2 and float(metrics["loss"]) > 0
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = TrainCheckpointer(pathlib.Path(tmp) / "ckpt")
+        assert ckpt.save(state)
+        restored = ckpt.restore(create_train_state(cfg, rng_seed=1,
+                                                   device="cpu"))
+        assert restored.step == 2
+        npz = pathlib.Path(tmp) / "encoder.npz"
+        save_params_npz(state_dict_to_flax(state.model), npz)
+        trained = Embedder(EmbedderConfig(model=BgeM3Config.tiny()),
+                           params=load_params_npz(npz), device="cpu")
+        assert trained.embed(["un texte"])["dense"].shape == (1, 64)
     bad = [m for m in sys.modules
-           if m.split(".")[0] in ("jax", "flax", "transformers",
-                                  "rag_dpo_tpu")]
+           if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                  "transformers", "rag_dpo_tpu")]
     assert not bad, bad
     print("OK", len(resp.sources))
 """)
