@@ -13,30 +13,40 @@ Phases, in order; any failure exits non-zero before the result lines:
 3. kernels — each kernel against its plain PyTorch twin on the same CUDA
    tensors, at the shapes the query path gives it (the flash forward at
    the training shape too; ELL at the hermetic replay's width 48 too;
-   MaxSim at the rerank's full width and the replay's), then flash
-   attention's dq and dk/dv kernels at the training shape and others;
-   timed with CUDA events and the profiler, beside each kernel's bound
-   and, where one PyTorch call computes the same function, that call's
-   time;
-4. ingest — 16,919 chunk texts over 1,829 doc keys, made from `--seed` by
+   MaxSim at the rerank's full width and the replay's; the fused dense
+   top-k at the serve shape and over 1M rows, the pooled int8 sweep over
+   1M rows, at batches 1, 64 and 256), then flash attention's dq and
+   dk/dv kernels at the training shape and others; timed with CUDA events
+   and the profiler, beside each kernel's bound and, where one PyTorch
+   call computes the same function, that call's time;
+4. scale — bench.py's 1M-chunk recipe made from `--seed` on the card:
+   1,000,000 unit rows of 1024 dims, ELL width 24 over 50,000 terms,
+   `IndexConfig(quantize_int8=True, postings_cap=256,
+   postings_candidates=64)`, built with `DeviceIndex.add`, saved to
+   `TMPDIR` and reloaded; `search_dense(k=40)` (the int8 sweep, K6) +
+   `search_sparse(k=40)` (the postings engine) + `rrf_fuse` to 10 at
+   batches 1, 64 and 256; dense recall@10 of the head of the int8 top-40
+   against an exact f32 index over the same rows (K4) must be ≥ 0.99;
+   postings recall@40 against K3 over the same ELL image is printed;
+5. ingest — 16,919 chunk texts over 1,829 doc keys, made from `--seed` by
    recombining sentences of the synthetic corpus, encoded by a full-width
    BGE-M3 (24 layers, 1024 hidden, random weights) through the port's
    `CorpusIndexer` with ColBERT storage (Dc 1024, `colbert_len` the
    power-of-two bucket of the longest chunk), then saved as an index
    checkpoint;
-5. serve — `build_stack` reloads the checkpoint and answers 8 questions of
+6. serve — `build_stack` reloads the checkpoint and answers 8 questions of
    the QA dataset through `pipeline.query` with a full-width cross-encoder
    reranking 40 candidates to 10; the kernels' launch counters must rise
    and no plain twin may run on the card;
-6. serve, MaxSim — `create_pipeline(use_maxsim=True)` over the same loaded
+7. serve, MaxSim — `create_pipeline(use_maxsim=True)` over the same loaded
    index answers 8 questions, reranking 40 candidates to 10 by MaxSim over
    the stored ColBERT rows; K7 must launch and no twin may run;
-7. hermetic — the port's hermetic replay with the committed trained
+8. hermetic — the port's hermetic replay with the committed trained
    encoder must pass the gate against the committed trained records; then
-   its MaxSim arm, where K3 and K7 must launch and no twin may run. (The
+   its MaxSim arm, where K3, K4 and K7 must launch and no twin may run. (The
    random-init record needs Flax's initialisation, which only jax makes:
    it is gated by a CPU test.)
-8. train — contrastive training of a full-width BGE-M3 (f32, flash on) on
+9. train — contrastive training of a full-width BGE-M3 (f32, flash on) on
    16 pairs x 192 tokens with one mined hard negative each, through
    `train_retriever`: 2 steps and a checkpoint, then a resume to step 4;
    then 1 warm-up and 8 timed steps on one repeated batch, whose losses
@@ -45,9 +55,10 @@ Phases, in order; any failure exits non-zero before the result lines:
 
 The second-to-last line is a JSON object with each kernel's launches in
 the phase of the main path that runs it (serve for the ELL kernel, MaxSim
-serve for K7, train for the flash kernels), its max abs error against the
-twin, its times, its bound and the library call's time; the last line is
-`{"ok": true, "device": {...}}`. There is no CPU path.
+serve for K7, train for the flash kernels, scale for K4 and K6), its max
+abs error against the twin, its times, its bound and the library call's
+time; the last line is `{"ok": true, "device": {...}}`. There is no CPU
+path.
 """
 
 from __future__ import annotations
@@ -74,13 +85,25 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # K7: the kernel sums each dot in lane order and the twin in cuBLAS's,
 # both in f32; maxima are exact, so scores agree to f32 rounding
 MAXSIM_TOL = dict(rtol=1e-5, atol=1e-4)
-SERVE_KERNELS = ("flash_fwd", "ell_topk")
-MAXSIM_KERNELS = ("flash_fwd", "ell_topk", "maxsim")
+SERVE_KERNELS = ("flash_fwd", "ell_topk", "fused_topk")
+MAXSIM_KERNELS = ("flash_fwd", "ell_topk", "fused_topk", "maxsim")
+SCALE_KERNELS = ("fused_topk", "pooled_max")
+# bench.py:44-58: the 1M-chunk index and its queries
+SCALE_N, SCALE_DIM, SCALE_ELL, SCALE_VOCAB, SCALE_TERMS = (
+    1_000_000, 1024, 24, 50_000, 16)
+SCALE_BATCHES = (1, 64, 256)
+SCALE_MIN_RECALL = 0.99
+# K4 and K6 sum each dot in d order, their twins in cuBLAS's, both in f32:
+# scores agree within 1e-5, and ids but where two rows (K6: the two best of
+# a group) lie within 1e-5 of each other
+NEAR_TIE = 1e-5
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_PAIRS, TRAIN_SEQ, TIMED_STEPS = 16, 192, 8
 # H100 SXM data sheet, at 700 W: f32 FLOP/s outside the tensor cores (every
-# kernel of the port computes in f32), and HBM3 bytes/s
-F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# kernel of the port computes in f32), the bf16 tensor cores' rate (the
+# peak for K4's and K6's bf16 inputs; bf16 × bf16 and bf16 × int8 products
+# are exact in f32), and HBM3 bytes/s
+F32_FLOPS, BF16_FLOPS, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -151,11 +174,13 @@ def fmt_ms(x: float | None) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, flops_rate: float = F32_FLOPS
+          ) -> dict:
     """The least time the card could take for the work: the larger of the
-    operations over the f32 peak and the bytes (each input read once, each
-    output written once) over the memory rate."""
-    ops_ms = flops / F32_FLOPS * 1e3
+    operations over the peak for their type (f32 unless given) and the
+    bytes (each input read once, each output written once) over the memory
+    rate."""
+    ops_ms = flops / flops_rate * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -551,6 +576,343 @@ def check_flash_bwd(dev, gen) -> dict:
             for name in worst}
 
 
+def scale_rows(dev, gen, n: int | None = None):
+    """bench.py's corpus: n (default SCALE_N) unit Gaussian rows of
+    SCALE_DIM dims (f32, made on the card from `gen`), padded with zero
+    rows to the index's 1024-row granularity, and the store's penalty
+    (−1e4 on the padding)."""
+    import torch
+
+    n, d = n or SCALE_N, SCALE_DIM
+
+    n_pad = -(-n // 1024) * 1024
+    rows = torch.zeros((n_pad, d), device=dev)
+    for lo in range(0, n, 1 << 17):
+        hi = min(n, lo + (1 << 17))
+        x = torch.randn((hi - lo, d), generator=gen, device=dev)
+        rows[lo:hi] = x / x.norm(dim=1, keepdim=True)
+    penalty = torch.zeros((n_pad,), device=dev)
+    penalty[n:] = -1e4
+    return rows, penalty
+
+
+def unit_queries(dev, gen, q: int):
+    import torch
+
+    x = torch.randn((q, SCALE_DIM), generator=gen, device=dev)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def fused_topk_bound(q: int, n: int, d: int, k: int, itemsize: int) -> dict:
+    """2·Q·N·D operations on bf16 (or f32) inputs; the rows, queries and
+    penalty read once, [Q, k] scores and ids written once. With the bound
+    on the f32 CUDA cores beside it, the rate the kernel computes at."""
+    flops = 2.0 * q * n * d
+    nbytes = (n * d + q * d) * itemsize + 4.0 * n + 8.0 * q * k
+    rate = BF16_FLOPS if itemsize == 2 else F32_FLOPS
+    return {**bound(flops, nbytes, rate),
+            "f32_cores_bound_ms": bound(flops, nbytes)["bound_ms"]}
+
+
+def check_fused_topk(dev, gen) -> dict:
+    """K4 against its twin at the serve shape (4 query variants × the
+    16,919-chunk index's 17,408 padded rows, bf16, k 40) and over the 1M
+    rows at batches 1, 64 and 256."""
+    import torch
+
+    from rag_dpo_tpu_torch.ops.topk import fused_topk, fused_topk_plain
+
+    def compare(q, e, pen, k, label):
+        ks, ki = fused_topk(q, e, k, penalty=pen)
+        ps, pi = fused_topk_plain(q, e, k, penalty=pen)
+        torch.cuda.synchronize()
+        err = float((ks - ps).abs().max())
+        check(err <= NEAR_TIE, f"fused_topk {label}: scores differ by {err}")
+        differ = ki != pi
+        # each id the kernel returns carries the twin's score of its slot
+        got = torch.einsum("qd,qkd->qk", q.float(),
+                           e[ki.clamp_min(0).long()].float())
+        got = got + pen[ki.clamp_min(0).long()]
+        gap = float((got - ps)[differ].abs().max()) if differ.any() else 0.
+        check(gap <= NEAR_TIE, f"fused_topk {label}: an id differs outside "
+              f"a near-tie ({gap})")
+        ks2, ki2 = fused_topk(q, e, k, penalty=pen)
+        check(torch.equal(ks2, ks) and torch.equal(ki2, ki),
+              f"fused_topk {label}: two runs differ")
+        return err, int(differ.sum())
+
+    out = {}
+    rows, pen = scale_rows(dev, gen, n=16_919)
+    e = rows[:17_408].to(torch.bfloat16)
+    q = unit_queries(dev, gen, 4).to(torch.bfloat16)
+    pen = pen[:17_408]
+    err, ties = compare(q, e, pen, 40, "serve")
+    ms = cuda_ms(lambda: fused_topk(q, e, 40, penalty=pen))
+    plain_ms = cuda_ms(lambda: fused_topk_plain(q, e, 40, penalty=pen))
+    bnd = fused_topk_bound(4, 17_408, SCALE_DIM, 40, 2)
+    log(f"fused_topk [4x1024]x[17408x1024] bf16 k=40: max_abs_err={err:.3g}, "
+        f"{ties} near-tie ids; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; "
+        f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']})")
+    out.update({"serve_max_abs_err": err, "serve_ms": ms,
+                "serve_plain_ms": plain_ms,
+                **{f"serve_{k}": v for k, v in bnd.items()},
+                "serve_device_ms": device_ms(
+                    lambda: fused_topk(q, e, 40, penalty=pen), launches=2)})
+    del rows, e
+    rows, pen = scale_rows(dev, gen)
+    e = rows.to(torch.bfloat16)
+    del rows
+    worst = 0.0
+    for nq in SCALE_BATCHES:
+        q = unit_queries(dev, gen, nq).to(torch.bfloat16)
+        err, ties = compare(q, e, pen, 40, f"1M Q={nq}")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: fused_topk(q, e, 40, penalty=pen), iters=10)
+        plain_ms = cuda_ms(lambda: fused_topk_plain(q, e, 40, penalty=pen),
+                           iters=3, warmup=1)
+        pen16 = pen.to(torch.bfloat16)[None, :]
+        lib_ms = cuda_ms(lambda: torch.topk(torch.addmm(pen16, q, e.T), 40),
+                         iters=10)
+        bnd = fused_topk_bound(nq, e.shape[0], SCALE_DIM, 40, 2)
+        dms = device_ms(lambda: fused_topk(q, e, 40, penalty=pen),
+                        iters=5, launches=2)
+        log(f"fused_topk [{nq}x1024]x[{e.shape[0]}x1024] bf16 k=40: "
+            f"max_abs_err={err:.3g}, {ties} near-tie ids; kernel_ms={ms:.4f} "
+            f"(device {fmt_ms(dms)}) plain_ms={plain_ms:.4f}; torch.topk("
+            f"addmm) {lib_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}), on the f32 cores "
+            f"{bnd['f32_cores_bound_ms']:.4f} ms")
+        out[f"q{nq}"] = {"ms": ms, "device_ms": dms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "near_tie_ids": ties, **bnd}
+    main = out.pop(f"q{SCALE_BATCHES[-1]}")
+    return {"max_abs_err": worst, **main,
+            "library_calls": "torch.topk(torch.addmm(pen, q, e.T), k): a "
+                             "bf16 tensor-core GEMM with a bf16 [Q, N] "
+                             "output, then topk",
+            "shape": f"[{SCALE_BATCHES[-1]}x1024]x[{e.shape[0]}x1024] bf16 "
+                     "k=40", **out}
+
+
+def check_pooled(dev, gen) -> dict:
+    """K6 against its twin over the 1M int8 rows (quantized as the store
+    quantizes them) at batches 1, 64 and 256."""
+    import torch
+
+    from rag_dpo_tpu_torch.ops.pooled import (
+        pooled_group_max,
+        pooled_group_max_plain,
+    )
+    from rag_dpo_tpu_torch.ops.quantize import quantize_rows
+
+    rows, pen = scale_rows(dev, gen)
+    e_i8, e_scale = quantize_rows(rows)
+    del rows
+    n, d = e_i8.shape
+    out, worst = {}, 0.0
+    for nq in SCALE_BATCHES:
+        q = unit_queries(dev, gen, nq).to(torch.bfloat16)
+        args = (q, e_i8, e_scale, pen)
+        kv, ki = pooled_group_max(*args)
+        pv, pi = pooled_group_max_plain(*args)
+        torch.cuda.synchronize()
+        err = float((kv.float() - pv.float()).abs().max())
+        ulp = torch.ldexp(torch.ones_like(pv.float()),
+                          torch.frexp(pv.float()).exponent - 8)
+        check(bool(((kv.float() - pv.float()).abs() <= ulp).all()),
+              f"pooled Q={nq}: a value differs by more than one bf16 ulp")
+        s = (q.float() @ e_i8.float().T) * e_scale + pen      # [Q, n_pad]
+        nb = -(-n // 8192)
+        full = torch.full((nq, nb * 8192), -1e30, device=dev)
+        full[:, :n] = s
+        top2 = full.reshape(nq, nb, 64, 128).topk(2, dim=2).values
+        near = (top2[:, :, 0] - top2[:, :, 1] <= NEAR_TIE).reshape(nq, -1)
+        differ = ki != pi
+        check(not bool((differ & ~near).any()),
+              f"pooled Q={nq}: an id differs outside a near-tie")
+        del s, full, top2
+        kv2, ki2 = pooled_group_max(*args)
+        check(torch.equal(kv2, kv) and torch.equal(ki2, ki),
+              f"pooled Q={nq}: two runs differ")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: pooled_group_max(*args), iters=10)
+        plain_ms = cuda_ms(lambda: pooled_group_max_plain(*args), iters=3,
+                           warmup=1)
+        dms = device_ms(lambda: pooled_group_max(*args), iters=5,
+                        launches=1)
+        # the int8 rows, their scales and the penalty, the queries read
+        # once; bf16 maxima and int32 ids written once
+        n_pool = ki.shape[1]
+        flops = 2.0 * nq * n * d
+        nbytes = n * d + 8.0 * n + 2.0 * nq * d + 6.0 * nq * n_pool
+        bnd = {**bound(flops, nbytes, BF16_FLOPS),
+               "f32_cores_bound_ms": bound(flops, nbytes)["bound_ms"]}
+        log(f"pooled_max [{nq}x1024] bf16 x [{n}x1024] int8: max_abs_err="
+            f"{err:.3g} (values within a bf16 ulp), {int(differ.sum())} "
+            f"near-tie ids; kernel_ms={ms:.4f} (device {fmt_ms(dms)}) "
+            f"plain_ms={plain_ms:.4f}; bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}), on the f32 cores "
+            f"{bnd['f32_cores_bound_ms']:.4f} ms")
+        out[f"q{nq}"] = {"ms": ms, "device_ms": dms, "plain_ms": plain_ms,
+                         "near_tie_ids": int(differ.sum()), **bnd}
+    main = out.pop(f"q{SCALE_BATCHES[-1]}")
+    return {"max_abs_err": worst, **main, "library_ms": None,
+            "shape": f"[{SCALE_BATCHES[-1]}x1024] bf16 x [{n}x1024] int8, "
+                     "block 8192, group 64", **out}
+
+
+def run_scale(seed: int, dev) -> dict:
+    """The 1M-chunk index through the index's entry points (see the module
+    docstring, phase 4)."""
+    import numpy as np
+    import torch
+
+    from rag_dpo_tpu_torch.index import DeviceIndex, IndexConfig
+    from rag_dpo_tpu_torch.ops import _kernels, rrf_fuse
+    from rag_dpo_tpu_torch.ops.sparse import ell_topk
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    rows, _ = scale_rows(dev, gen)
+    dense = rows[:SCALE_N].to(torch.float16).cpu().numpy()
+    del rows
+    terms = torch.randint(0, SCALE_VOCAB, (SCALE_N, SCALE_ELL),
+                          generator=gen, device=dev, dtype=torch.int32)
+    impacts = torch.randn((SCALE_N, SCALE_ELL), generator=gen,
+                          device=dev).abs()
+    terms, impacts = terms.cpu().numpy(), impacts.cpu().numpy()
+    ids = [f"s{i}" for i in range(SCALE_N)]
+    cfg = IndexConfig(dim=SCALE_DIM, ell_width=SCALE_ELL, quantize_int8=True,
+                      postings_cap=256, postings_candidates=64)
+    index = DeviceIndex(cfg, device=dev)
+    index.add(ids, dense, terms=terms, impacts=impacts)
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="ragdpo_scale_") as tmp:
+        t0 = time.perf_counter()
+        index.save(tmp)
+        save_s = time.perf_counter() - t0
+        ckpt_gb = sum(f.stat().st_size
+                      for f in pathlib.Path(tmp).iterdir()) / 1e9
+        del index
+        t0 = time.perf_counter()
+        index = DeviceIndex.load(tmp, device=dev)
+        load_s = time.perf_counter() - t0
+    check(index.n_rows == SCALE_N and index.config.quantize_int8,
+          f"reloaded {index.n_rows} rows, {index.config}")
+    t0 = time.perf_counter()
+    image = index.device_image()
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t0
+    check(image["embs"] is None and image["embs_i8"].dtype == torch.int8,
+          "the int8 index kept a bf16 image")
+    log(f"scale: {SCALE_N} rows x {SCALE_DIM} + ELL {SCALE_ELL} built in "
+        f"{build_s:.1f} s, saved ({ckpt_gb:.2f} GB) in {save_s:.1f} s, "
+        f"reloaded in {load_s:.1f} s; int8 device image in {image_s:.1f} s")
+
+    weights = torch.tensor([2.0, 1.5], device=dev)
+    rng = np.random.default_rng(seed + 2)
+
+    def batch(nq):
+        q = unit_queries(dev, gen, nq).cpu().numpy()
+        qt = rng.integers(0, SCALE_VOCAB, (nq, SCALE_TERMS)).astype(np.int32)
+        qw = np.abs(rng.standard_normal((nq, SCALE_TERMS))).astype(
+            np.float32)
+        return q, qt, qw
+
+    def hybrid(q, qt, qw, parts=None):
+        t0 = time.perf_counter()
+        ds, di = index.search_dense(q, 40)
+        t1 = time.perf_counter()
+        ss, si = index.search_sparse(qt, qw, 40)
+        t2 = time.perf_counter()
+        arms = torch.from_numpy(np.stack([di, si])).to(dev)
+        fs, fi = rrf_fuse(arms, weights, topk=10)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if parts is not None:
+            parts.append((t1 - t0, t2 - t1, t3 - t2))
+        return di, si, fi
+
+    reps = {1: 20, 64: 5, 256: 5}
+    _kernels.reset_counts()
+    timed, batches = {}, {}
+    for nq in SCALE_BATCHES:
+        batches[nq] = batch(nq)
+        t0 = time.perf_counter()
+        hybrid(*batches[nq])  # warm-up; the first builds the postings
+        if nq == SCALE_BATCHES[0]:
+            first_s = time.perf_counter() - t0
+            log(f"scale: first search (inverts the postings) {first_s:.1f} s")
+        parts = []
+        for _ in range(reps[nq]):
+            di, si, fi = hybrid(*batches[nq], parts)
+        check(fi.shape == (nq, 10) and bool((fi >= 0).all()),
+              f"scale batch {nq}: fused ids {fi}")
+        check(bool((di[:, :10] >= 0).all()) and bool((si[:, 0] >= 0).any()),
+              f"scale batch {nq}: empty arms")
+        tot = [sum(p) for p in parts]
+        med = [float(np.median([p[i] for p in parts])) for i in range(3)]
+        timed[nq] = {"p50_ms": float(np.median(tot)) * 1e3,
+                     "dense_ms": med[0] * 1e3, "sparse_ms": med[1] * 1e3,
+                     "rrf_ms": med[2] * 1e3,
+                     "queries_per_s": nq / float(np.median(tot))}
+        log(f"scale batch {nq}: {reps[nq]} hybrid searches after 1 warm-up: "
+            f"p50 {timed[nq]['p50_ms']:.2f} ms (dense {med[0] * 1e3:.2f}, "
+            f"sparse {med[1] * 1e3:.2f}, rrf {med[2] * 1e3:.2f}) = "
+            f"{timed[nq]['queries_per_s']:.1f} queries/s")
+    q256, qt256, qw256 = batches[SCALE_BATCHES[-1]]
+    busy, parts = profile_once(lambda: hybrid(q256, qt256, qw256),
+                               "one batch-256 hybrid search",
+                               timed[256]["p50_ms"] / 1e3,
+                               show=("pooled", "topk", "Memcpy"))
+    if not parts["pooled"]:  # K6 ran, so the trace lost its events
+        log("profile: no pooled_max event in the trace (the profiler lost "
+            "the kernels' events): busy share not measured")
+        busy = None
+    # dense recall@10: the head of the int8 top-40 against exact top-10
+    # from an index over the same host rows kept in f32 (K4 on the f16
+    # rows widened exactly, the host refine's arithmetic)
+    di = index.search_dense(q256, 40)[1]
+    exact_index = DeviceIndex(
+        dataclasses.replace(cfg, quantize_int8=False,
+                            device_dtype=torch.float32), device=dev)
+    exact_index.add(ids, dense)
+    _, ei = exact_index.search_dense(q256, 10, exact=True)
+    recall = float(np.mean([len(set(a[:10]) & set(b)) / 10
+                            for a, b in zip(di, ei)]))
+    launches = {n: _kernels.LAUNCHES[n] for n in SCALE_KERNELS}
+    plain = dict(_kernels.PLAIN_ON_CUDA)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del exact_index
+    # postings recall@40 against the ELL kernel over the same image
+    qt16 = torch.from_numpy(qt256[:16]).to(dev)
+    qw16 = torch.from_numpy(qw256[:16]).to(dev)
+    _, oi = ell_topk(image["terms"], image["impacts"], qt16, qw16, k=40)
+    si = index.search_sparse(qt256[:16], qw256[:16], 40)[1]
+    oi = oi.cpu().numpy()
+    p_recall = float(np.mean([len(set(a) & set(b)) / 40
+                              for a, b in zip(si, oi)]))
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    log(f"scale: dense recall@10 (head of the int8 top-40 vs exact) "
+        f"{recall:.4f}; postings recall@40 vs K3 over 16 queries "
+        f"{p_recall:.4f}; peak device memory {peak_gb:.2f} GB, host peak "
+        f"so far {rss_gb:.1f} GB; launches {launches}, plain twins on the "
+        f"card {plain}")
+    check(recall >= SCALE_MIN_RECALL, f"dense recall@10 {recall}")
+    return {"launches": launches, "plain_on_cuda": plain,
+            "batch1_p50_ms": timed[1]["p50_ms"],
+            "batch256_queries_per_s": timed[256]["queries_per_s"],
+            "timed": timed, "dense_recall_at_10": recall,
+            "postings_recall_at_40_vs_ell": p_recall,
+            "peak_device_gb": peak_gb, "host_peak_gb": rss_gb,
+            "build_s": build_s, "save_s": save_s, "load_s": load_s,
+            "image_s": image_s, "first_search_s": first_s,
+            "checkpoint_gb": ckpt_gb,
+            "batch256_device_busy_share": busy, "batch256_device_parts": parts}
+
+
 # ------------------------------------------------------------- corpus
 def build_corpus(seed: int, n_chunks: int, n_docs: int) -> tuple:
     """The synthetic corpus's 212 chunks, then chunks whose text is 2-4
@@ -814,8 +1176,9 @@ def run_hermetic(dev) -> dict:
 
     params = load_trained_params()
     out = {}
-    for reranker, kernels in (("none", ("ell_topk",)),
-                              ("maxsim", ("ell_topk", "maxsim"))):
+    for reranker, kernels in (("none", ("ell_topk", "fused_topk")),
+                              ("maxsim", ("ell_topk", "fused_topk",
+                                          "maxsim"))):
         _kernels.reset_counts()
         t0 = time.perf_counter()
         record = run_hermetic_replay(n_runs=1, encoder_params=params,
@@ -1003,9 +1366,23 @@ def main() -> int:
     flash = check_flash(dev, gen)
     ell = check_ell(dev, gen)
     mx = check_maxsim(dev, gen, colbert_len)
+    k4 = check_fused_topk(dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k6 = check_pooled(dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
     # before the serve phases: after them, the profiler lost the backward
     # kernels' events (device time not measured)
     flash_bwd = check_flash_bwd(dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    scale = run_scale(args.seed, dev)
+    for name in SCALE_KERNELS:
+        check(scale["launches"][name] > 0, f"{name} never launched at scale")
+    check(not any(scale["plain_on_cuda"].values()),
+          f"a twin ran in the scale phase: {scale['plain_on_cuda']}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1058,6 +1435,20 @@ def main() -> int:
          "launches": path["maxsim"]["launches"]["maxsim"],
          "hermetic_launches": hermetic["maxsim"]["launches"]["maxsim"],
          **mx},
+        {"name": "fused_topk", "route": "cuda",
+         "source": "rag_dpo_tpu_torch/csrc/fused_topk.cu",
+         "replaces": "rag_dpo_tpu/ops/topk.py:427",
+         "launches": scale["launches"]["fused_topk"],
+         "serve_launches": path["launches"]["fused_topk"],
+         "maxsim_serve_launches":
+             path["maxsim"]["launches"]["fused_topk"],
+         "hermetic_launches": hermetic["none"]["launches"]["fused_topk"],
+         **k4},
+        {"name": "pooled_max", "route": "cuda",
+         "source": "rag_dpo_tpu_torch/csrc/pooled.cu",
+         "replaces": "rag_dpo_tpu/ops/pooled.py:44",
+         "launches": scale["launches"]["pooled_max"],
+         **k6},
     ]
     maxsim = path["maxsim"]
     log(json.dumps({"kernels": kernels, "build_s": build_s,
@@ -1070,6 +1461,8 @@ def main() -> int:
                         path["query_device_busy_share"],
                     **{f"maxsim_{k}": v for k, v in maxsim.items()
                        if k.startswith("query_")},
+                    **{f"scale_{k}": v for k, v in scale.items()
+                       if k not in ("launches", "plain_on_cuda")},
                     "hermetic_trained": hermetic["none"]["gated"],
                     "hermetic_trained_maxsim": hermetic["maxsim"]["gated"],
                     **{k: v for k, v in train.items()

@@ -1,20 +1,31 @@
 """Device-resident vector + lexical index on one torch device.
 
-Port of `rag_dpo_tpu/index/store.py` for a single device with bf16 dense
-storage. The host store (f16 dense rows, ELL terms/impacts/tf/dl, alive
-flags, metadata, string ids) and the checkpoint format (`arrays.npz`,
-`manifest.json`, `metadata.json`, `bm25.json`) are the JAX package's, so a
-checkpoint saved by either package loads in the other. The device image is
+Port of `rag_dpo_tpu/index/store.py` for a single device, with bf16 or
+int8 dense storage. The host store (f16 dense rows, ELL
+terms/impacts/tf/dl, alive flags, metadata, string ids) and the checkpoint
+format (`arrays.npz`, `manifest.json`, `metadata.json`, `bm25.json`) are
+the JAX package's, so a checkpoint saved by either package loads in the
+other. The device image is
 the same padded layout: rows rounded up to `row_block`, padding rows with
 zero vectors, −1 terms and a −1e4 penalty.
 
-Search engines: dense top-k is plain torch (`ops.topk`: approx = exact +
-cut, exact = blocked, masked = penalty-folded approx); the sparse arm runs
-the ELL kernel (`ops.sparse.ell_topk`) over the whole padded image for
-unfiltered queries, and the plain full scorer for filtered ones. ColBERT
-rows stay on the host in f16 (`colbert_vectors`, for the MaxSim rerank).
-Int8 storage, the postings engine and mesh sharding are later slices of
-the port (ROADMAP) and raise here.
+Search engines:
+* dense, bf16: exact top-k with the lowest row first among ties
+  (`ops.topk`: approx, exact = blocked, masked = penalty-folded approx),
+  which on the card is the fused top-k kernel (K4);
+* dense, int8 (`quantize_int8`): the pooled-max sweep (`ops.pooled`, K6)
+  of bf16 queries over the int8 rows with the combined penalty, the best
+  4k groups, then an exact f32 re-score against the host f16 rows. The
+  reference ranks its candidates by int8 × int8 (ROADMAP C-14); both are
+  approximate by design, and `exact` does not apply;
+* sparse: the ELL kernel (`ops.sparse.ell_topk`, K3) over the whole padded
+  image for unfiltered queries and the plain full scorer for filtered
+  ones, below `postings_threshold` rows and Q·T ≤ 128; above either, the
+  impact-ordered postings engine (`ops.postings`), filtered queries
+  through an unfiltered overfetch and a host filter.
+ColBERT rows stay on the host in f16 (`colbert_vectors`, for the MaxSim
+rerank). The on-card refine of int8 candidates (`device_refine`) and mesh
+sharding are later slices of the port (ROADMAP) and raise here.
 """
 
 from __future__ import annotations
@@ -28,7 +39,11 @@ import numpy as np
 import torch
 
 from ..ops import approx_topk, blocked_topk, default_device
+from ..ops.pooled import pooled_group_max
+from ..ops.postings import PostingsIndex, postings_candidates_topk
+from ..ops.quantize import quantize_rows
 from ..ops.sparse import ell_scores, ell_topk
+from ..ops.topk import _sort_desc
 from .metadata import MetadataStore, compile_filter
 
 NEG_INF = -1e30
@@ -43,20 +58,24 @@ class IndexConfig:
     colbert_len: int = 0
     row_block: int = 1024        # device padding granularity
     device_dtype: Any = torch.bfloat16
-    # above this row count (or for heavy query batches) the JAX package
-    # switches to the postings engine, which the port does not have yet
+    # sparse engine: the ELL kernel is O(N) per query; above this row
+    # count (or for Q·T > 128) the impact-ordered postings engine takes over
     postings_threshold: int = 100_000
     postings_cap: int = 512
     postings_candidates: int = 512
+    # int8 dense storage: int8 rows + f32 scales on the device, candidates
+    # refined exactly against the host f16 rows
     quantize_int8: bool = False
-    device_refine: bool = False
+    device_refine: bool = False   # refine on the card: not ported (raises)
     sweep_block_rows: int = 0
 
 
 class DeviceIndex:
     def __init__(self, config: IndexConfig, device=None):
-        if config.quantize_int8:
-            raise NotImplementedError("int8 storage " + _NOT_PORTED.format(4))
+        if config.quantize_int8 and config.device_refine:
+            raise NotImplementedError(
+                "device_refine (the int8 refine on the card) is "
+                + _NOT_PORTED.format(11))
         self.config = config
         self.device = default_device(device)
         self.ids: list[str] = []
@@ -232,8 +251,16 @@ class DeviceIndex:
         def put(x):
             return torch.from_numpy(x).to(self.device)
 
+        embs_d, embs_i8, embs_scale = put(embs), None, None
+        if cfg.quantize_int8:  # the bf16 image is not kept, as in JAX
+            embs_i8, embs_scale = quantize_rows(embs_d)
+            embs_d = None
+        else:
+            embs_d = embs_d.to(cfg.device_dtype)
         self._device = {
-            "embs": put(embs).to(cfg.device_dtype),
+            "embs": embs_d,
+            "embs_i8": embs_i8,
+            "embs_scale": embs_scale,
             "terms": put(terms),
             "impacts": put(impacts),
             "alive_penalty": put(alive_penalty),
@@ -280,6 +307,8 @@ class DeviceIndex:
         rows; -1 = empty). Filter `where` is a ChromaDB-style tree."""
         dev = self.device_image()
         mask = self._mask_vector(where)
+        if dev["embs_i8"] is not None:
+            return self._int8_dense(queries, k, mask, dev)
         q = self._queries(queries)
         if mask is not None:
             if exact:
@@ -300,6 +329,39 @@ class DeviceIndex:
         i = np.where((i >= 0) & (i < self.n_rows), i, -1)
         return self._strip_dead(s, i, k)
 
+    def _int8_dense(self, queries, k: int, mask, dev):
+        """Int8 search; filters fold into the penalty. The pooled sweep
+        (K6) keeps the max of every strided group of 64 rows; the best
+        min(4k, groups) groups are re-scored exactly on the host."""
+        qf32 = np.asarray(queries, np.float32)
+        q = torch.from_numpy(qf32).to(self.device).to(torch.bfloat16)
+        penalty = self._combined_penalty(mask, dev)
+        pv, pi = pooled_group_max(q, dev["embs_i8"], dev["embs_scale"],
+                                  penalty)
+        kk = min(4 * k, pv.shape[1])
+        cvals, pos = _sort_desc(pv.float())
+        s = _host(cvals[:, :kk])
+        i = _host(torch.gather(pi, 1, pos[:, :kk]))
+        ok = (i >= 0) & (i < self.n_rows) & (s > -5e3)
+        return self._host_refine(qf32, s, i, ok, k)
+
+    def _host_refine(self, qf32, s, i, ok, k: int):
+        """Exact f32 re-score of device-selected candidates against the
+        host f16 rows; invalid slots stay excluded."""
+        safe = np.where(ok, i, 0)
+        rows = self._dense[safe].astype(np.float32)      # [Q, C, D]
+        exact = np.einsum("qd,qcd->qc", qf32, rows)
+        exact = np.where(ok, exact, NEG_INF)
+        order = np.argsort(-exact, axis=1, kind="stable")[:, :k]
+        top = np.take_along_axis(exact, order, axis=1)
+        ids = np.take_along_axis(np.where(ok, i, -1), order, axis=1)
+        ids = np.where(top > NEG_INF / 2, ids, -1)
+        if ids.shape[1] < k:
+            pad = k - ids.shape[1]
+            top = np.pad(top, ((0, 0), (0, pad)), constant_values=NEG_INF)
+            ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=-1)
+        return top.astype(np.float32), ids
+
     def _masked_dense(self, q, k: int, mask: np.ndarray):
         """Filtered dense search: the mask folds into a score penalty and
         the approx selector runs unchanged."""
@@ -311,22 +373,50 @@ class DeviceIndex:
         s = np.where(i >= 0, s, NEG_INF)
         return s, i
 
+    def _postings_index(self):
+        dev = self.device_image()
+        if "postings" not in dev:
+            vocab = int(self._terms.max()) + 1 if self.n_rows else 1
+            cap = min(self.config.postings_cap,
+                      max(64, -(-self.n_rows // 64) * 64))
+            dev["postings"] = PostingsIndex.build(
+                self._terms, self._impacts, vocab_size=max(vocab, 1),
+                cap=cap).device_arrays(self.device)
+        return dev["postings"]
+
     def search_sparse(self, q_terms: np.ndarray, q_weights: np.ndarray,
                       k: int, where=None):
         """Lexical top-k (BM25 / learned sparse). q padding id: -2.
 
-        Unfiltered: the ELL top-k kernel over the whole padded image.
-        Filtered: exact full scores, then mask and a stable host top-k."""
+        Below `postings_threshold` rows and Q·T ≤ 128: unfiltered, the ELL
+        top-k kernel over the whole padded image; filtered, exact full
+        scores, then mask and a stable host top-k. Above either: the
+        postings engine, filtered queries through an unfiltered overfetch
+        of min(max(4k, 64), 256) and a host filter."""
         dev = self.device_image()
         mask = self._mask_vector(where)
         heavy_query = q_terms.shape[0] * q_terms.shape[1] > 128
-        if self.n_rows > self.config.postings_threshold or heavy_query:
-            raise NotImplementedError(
-                "the postings engine (corpora above postings_threshold or "
-                "Q·T > 128) is " + _NOT_PORTED.format(4))
+        postings = self.n_rows > self.config.postings_threshold or heavy_query
         qt = torch.from_numpy(np.asarray(q_terms, np.int32)).to(self.device)
         qw = torch.from_numpy(np.asarray(q_weights, np.float32)).to(
             self.device)
+        if postings:
+            arrays = self._postings_index()
+            fetch = k if mask is None else min(max(4 * k, 64), 256)
+            s, i = postings_candidates_topk(
+                *arrays, dev["terms"], dev["impacts"], qt, qw, k=fetch,
+                n_candidates=self.config.postings_candidates)
+            s, i = _host(s), _host(i)
+            if mask is None:
+                i = np.where((i >= 0) & (i < self.n_rows), i, -1)
+                return self._strip_dead(s, i, k)
+            ok = (i >= 0) & (i < self.n_rows)
+            ok &= np.where(ok, mask[np.clip(i, 0, self.n_rows - 1)], False)
+            s = np.where(ok, s, NEG_INF)
+            i = np.where(ok, i, -1)
+            order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+            return (np.take_along_axis(s, order, axis=1),
+                    np.take_along_axis(i, order, axis=1))
         if mask is None:
             s, i = ell_topk(dev["terms"], dev["impacts"], qt, qw, k=k)
             s, i = _host(s), _host(i)

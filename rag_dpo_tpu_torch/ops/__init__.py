@@ -3,7 +3,8 @@
 Every kernel wrapper takes its plain PyTorch version only for tensors that
 live on the CPU; for a CUDA tensor it launches the kernel (built at first
 use by `_kernels`) or raises. Work that XLA did without a hand-written
-kernel in the JAX package (dense top-k, RRF fusion) is plain torch here.
+kernel in the JAX package (RRF fusion, the postings engine, int8
+quantization) is plain torch here.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from .topk import (  # noqa: E402,F401
     approx_topk,
     blocked_topk,
     cosine_topk_reference,
+    fused_topk,
     streaming_topk_reference,
 )
 from .fusion import rrf_fuse, rrf_fuse_reference  # noqa: E402,F401

@@ -35,7 +35,8 @@ BUILD_DIR = PKG_DIR / "build"
 # kernel (its C entry point) -> the csrc/<source>.cu that defines it
 KERNELS = {"flash_fwd": "flash_fwd", "ell_topk": "ell_topk",
            "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
-           "maxsim": "maxsim"}
+           "maxsim": "maxsim", "fused_topk": "fused_topk",
+           "pooled_max": "pooled"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -62,6 +63,13 @@ SIGNATURES = {
     "flash_bwd_dkv": [_I, *[_P] * 9, _I, _I, _I, _I, _F, _P],
     # dtype, qv, q_mask, dv, d_mask, Q, LQ, C, LD, D, partial, out, stream
     "maxsim": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # dtype, q, e, penalty, P, Q, N, D, k, rows_per_block, cand_s, cand_i,
+    # out_s, out_i, stream
+    "fused_topk": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                   _P],
+    # q, e_i8, scale, penalty, P, Q, N, D, block_n, group, out_v, out_i,
+    # stream
+    "pooled_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

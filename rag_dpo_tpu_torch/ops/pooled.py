@@ -1,0 +1,159 @@
+"""Pooled-max dense sweep over int8 rows: the int8 arm's candidate generator.
+
+`pooled_group_max` is the port of the JAX package's Pallas
+`pooled_group_max` (K6): bf16 queries against int8 rows widened in the
+kernel, × the per-row scale, + the penalty; per `block_n`-row block the
+rows form `block_n / group` strided groups (group g holds rows
+`a·ng + g`), and each group gives its max (bf16) and the row of its first
+argmax (the lowest row wins a tie; −1 where the max is not above −5e29).
+On CUDA tensors it launches the hand-written kernel in `csrc/pooled.cu`,
+on CPU tensors it runs `pooled_group_max_plain`. The reference's
+`(block_n // group) % 128` check was a Mosaic lane constraint and is gone;
+`block_n % group == 0` stays.
+
+`pooled_topk_int8` is the reference's composition around the kernel: a
+cut of the pooled strip (a stable descending sort here, where the
+reference runs `approx_max_k`) and an exact re-score of the survivors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _kernels
+from .topk import NEG_INF, _sort_desc
+
+
+def _check_blocks(block_n: int, group: int) -> None:
+    if group < 1 or block_n < 1 or block_n % group:
+        raise ValueError(f"block_n ({block_n}) must be a positive multiple "
+                         f"of group ({group})")
+
+
+def pooled_group_max_plain(queries_bf16, e_i8, e_scale, penalty=None, *,
+                           block_n: int = 8192, group: int = 64):
+    """Plain twin of K6: widen to f32, a matmul, the scale and the penalty,
+    then max and first argmax over each strided group."""
+    _check_blocks(block_n, group)
+    if e_i8.is_cuda:
+        _kernels.PLAIN_ON_CUDA["pooled_max"] += 1
+    q = queries_bf16.shape[0]
+    n = e_i8.shape[0]
+    dev = e_i8.device
+    nb = -(-n // block_n)
+    n_pad = nb * block_n
+    ng = block_n // group
+    s = queries_bf16.float() @ e_i8.float().T                  # [Q, N]
+    scale = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+    scale[:n] = e_scale.float()
+    pen = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+    if penalty is not None:
+        pen.fill_(NEG_INF / 2)
+        m = min(n_pad, penalty.shape[0])
+        pen[:m] = penalty[:m].float()
+    s = torch.nn.functional.pad(s, (0, n_pad - n))
+    s = s * scale[None, :] + pen[None, :]
+    s = torch.where(torch.arange(n_pad, device=dev)[None, :] < n, s, NEG_INF)
+    s4 = s.reshape(q, nb, group, ng)        # (t, j, a, g) = s[t, j·bn + a·ng + g]
+    vals = s4.amax(dim=2)                                       # [Q, nb, ng]
+    a_iota = torch.arange(group, device=dev)[None, None, :, None]
+    pos = torch.where(s4 == vals[:, :, None, :], a_iota, group).amin(dim=2)
+    ids = (torch.arange(nb, device=dev)[None, :, None] * block_n
+           + pos * ng + torch.arange(ng, device=dev)[None, None, :])
+    ids = torch.where(vals > NEG_INF / 2, ids, -1).to(torch.int32)
+    return (vals.reshape(q, nb * ng).to(torch.bfloat16),
+            ids.reshape(q, nb * ng))
+
+
+def _pooled_max_kernel(queries_bf16, e_i8, e_scale, penalty, block_n: int,
+                       group: int):
+    _check_blocks(block_n, group)
+    if queries_bf16.dim() != 2 or e_i8.dim() != 2:
+        raise ValueError("pooled_group_max takes queries [Q, D] and e_i8 "
+                         "[N, D]")
+    (q, d), (n, dd) = queries_bf16.shape, e_i8.shape
+    if dd != d:
+        raise ValueError(f"queries have D={d}, e_i8 D={dd}")
+    if not (16 <= d <= 1024 and d % 16 == 0):
+        raise ValueError(f"the CUDA pooled kernel takes D a multiple of 16 "
+                         f"from 16 to 1024, got {d}")
+    if q < 1 or n < 1:
+        raise ValueError(f"pooled_group_max takes no empty axis, got Q={q} "
+                         f"N={n}")
+    if queries_bf16.dtype != torch.bfloat16 or e_i8.dtype != torch.int8:
+        raise ValueError(f"the CUDA pooled kernel takes bf16 queries and "
+                         f"int8 rows, got {queries_bf16.dtype} and "
+                         f"{e_i8.dtype}")
+    if e_scale.shape != (n,):
+        raise ValueError(f"e_scale must be [{n}], got {tuple(e_scale.shape)}")
+    dev = e_i8.device
+    for name, x in (("queries", queries_bf16), ("e_scale", e_scale),
+                    ("penalty", penalty)):
+        if x is not None and x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, e_i8 on {dev}")
+    for name, x in (("queries", queries_bf16), ("e_i8", e_i8)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    scale = e_scale.float().contiguous()
+    if penalty is not None:
+        if penalty.dim() != 1:
+            raise ValueError("penalty must be [N]")
+        penalty = penalty.float().contiguous()
+    n_pool = -(-n // block_n) * (block_n // group)
+    out_v = torch.empty((q, n_pool), dtype=torch.bfloat16, device=dev)
+    out_i = torch.empty((q, n_pool), dtype=torch.int32, device=dev)
+    lib = _kernels.load("pooled_max")
+    with torch.cuda.device(dev):
+        err = lib.pooled_max(
+            _kernels.ptr(queries_bf16), _kernels.ptr(e_i8),
+            _kernels.ptr(scale), _kernels.ptr(penalty),
+            0 if penalty is None else penalty.shape[0], q, n, d, block_n,
+            group, _kernels.ptr(out_v), _kernels.ptr(out_i),
+            _kernels.stream_of(e_i8))
+    _kernels.check(lib, err, "pooled_max")
+    _kernels.LAUNCHES["pooled_max"] += 1
+    return out_v, out_i
+
+
+def pooled_group_max(queries_bf16, e_i8, e_scale, penalty=None, *,
+                     block_n: int = 8192, group: int = 64):
+    """[Q, D] bf16 × int8 [N, D] → pooled ([Q, N/group] bf16 maxima,
+    [Q, N/group] int32 first-argmax rows), N rounded up to `block_n`.
+
+    On CUDA: bf16 queries, int8 rows, contiguous, D a multiple of 16 up to
+    1024; anything else raises."""
+    if e_i8.is_cuda:
+        return _pooled_max_kernel(queries_bf16, e_i8, e_scale, penalty,
+                                  block_n, group)
+    return pooled_group_max_plain(queries_bf16, e_i8, e_scale, penalty,
+                                  block_n=block_n, group=group)
+
+
+def pooled_topk_int8(q_f32, e_i8, e_scale, e_ref, k: int,
+                     oversample: int = 4, penalty=None, *,
+                     block_n: int = 8192, group: int = 64):
+    """Pooled sweep → the best `k·oversample` groups (stable descending
+    sort of the strip) → exact f32 re-score against `e_ref` rows → exact
+    top-k: ([Q, k] f32, [Q, k] int32), (−1e30, −1) padded. Slots whose
+    pooled value carries the −1e4 penalty (≤ −1e3) stay excluded."""
+    pooled_v, pooled_i = pooled_group_max(
+        q_f32.to(torch.bfloat16), e_i8, e_scale, penalty, block_n=block_n,
+        group=group)
+    npool = pooled_v.shape[1]
+    kk = min(k * oversample, npool)
+    cvals, cpos = _sort_desc(pooled_v.float())
+    cvals, cpos = cvals[:, :kk], cpos[:, :kk]
+    cids = torch.gather(pooled_i, 1, cpos)
+    safe = torch.where(cids >= 0, cids, 0)
+    rows = e_ref[safe].float()                                 # [Q, C, D]
+    exact = torch.einsum("qd,qcd->qc", q_f32.float(), rows)
+    exact = torch.where((cids >= 0) & (cvals > -1e3), exact, NEG_INF)
+    kk_out = min(k, exact.shape[1])
+    top, pos = _sort_desc(exact)
+    top, pos = top[:, :kk_out], pos[:, :kk_out]
+    ids = torch.gather(cids, 1, pos)
+    ids = torch.where(top > NEG_INF / 2, ids, -1).to(torch.int32)
+    if kk_out < k:
+        top = torch.nn.functional.pad(top, (0, k - kk_out), value=NEG_INF)
+        ids = torch.nn.functional.pad(ids, (0, k - kk_out), value=-1)
+    return top, ids

@@ -357,3 +357,237 @@ def test_maxsim_rerank_on_the_card_matches_the_cpu(dev):
                                    rtol=1e-4, atol=1e-4)
     assert _kernels.LAUNCHES["maxsim"] == before[0]["maxsim"] + len(dataset)
     assert _kernels.PLAIN_ON_CUDA == before[1]
+
+
+# K4 and K6: the kernels sum each dot in d order, the twins in cuBLAS's, both
+# in f32. Scores agree within 1e-5; ids agree except where two rows' twin
+# scores lie within 1e-5 of each other (near-ties).
+NEAR_TIE = 1e-5
+
+
+def _topk_case(gen, dev, q, n, d, dtype, pen):
+    queries = torch.randn((q, d), generator=gen, device=dev)
+    embs = torch.randn((n, d), generator=gen, device=dev)
+    embs = embs / embs.norm(dim=1, keepdim=True)
+    embs[n // 2:n // 2 + 5] = embs[7]           # exact ties
+    queries[0] = embs[7]
+    penalty = None
+    if pen is not None:
+        penalty = torch.zeros(n if pen == "full" else n - n // 7, device=dev)
+        penalty[torch.rand(penalty.shape, generator=gen, device=dev)
+                < 0.1] = -1e4
+    return queries.to(dtype), embs.to(dtype), penalty
+
+
+def _full_scores(queries, embs, penalty):
+    s = queries.float() @ embs.float().T
+    if penalty is not None:
+        pen = torch.full((embs.shape[0],), -5e29, device=embs.device)
+        pen[:penalty.shape[0]] = penalty[:embs.shape[0]]
+        s = s + pen
+    return s
+
+
+@pytest.mark.parametrize("q,n,d,k,dtype,pen", [
+    (4, 17_408, 1024, 40, torch.bfloat16, "full"),   # the serve shape
+    (1, 5000, 64, 40, torch.float32, None),
+    (20, 3001, 72, 160, torch.bfloat16, "short"),    # 64-query tiles
+    (3, 30, 16, 40, torch.float32, None),            # k > N
+    (70, 1000, 8, 256, torch.float32, "full"),       # the largest k
+    (1, 200_000, 1024, 40, torch.bfloat16, "full"),
+])
+def test_fused_topk_kernel_matches_plain(dev, q, n, d, k, dtype, pen):
+    from rag_dpo_tpu_torch.ops.topk import fused_topk, fused_topk_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(q * n + k)
+    queries, embs, penalty = _topk_case(gen, dev, q, n, d, dtype, pen)
+    before = _kernels.LAUNCHES["fused_topk"]
+    ks, ki = fused_topk(queries, embs, k, penalty=penalty)
+    assert _kernels.LAUNCHES["fused_topk"] == before + 1
+    ps, pi = fused_topk_plain(queries, embs, k, penalty=penalty)
+    torch.cuda.synchronize()
+    assert ks.shape == (q, k) and ki.dtype == torch.int32
+    valid = pi >= 0
+    assert torch.equal(ki >= 0, valid)
+    assert float((ks - ps).abs().max()) <= NEAR_TIE
+    # every id the kernel returns carries the twin's score of its slot
+    full = _full_scores(queries, embs, penalty)
+    got = torch.gather(full, 1, ki.clamp_min(0).long())
+    assert float((got - ps)[valid].abs().max()) <= NEAR_TIE
+    assert (ki[~valid] == -1).all() and (ks[~valid] == -1e30).all()
+    if k <= n:
+        assert ki[0, :6].tolist() == [7, n // 2, n // 2 + 1, n // 2 + 2,
+                                      n // 2 + 3, n // 2 + 4] or pen
+    # no atomics: the same inputs give the same bits
+    ks2, ki2 = fused_topk(queries, embs, k, penalty=penalty)
+    assert torch.equal(ks2, ks) and torch.equal(ki2, ki)
+
+
+def test_dense_selectors_on_the_card_match_the_cpu(dev):
+    """approx_topk and blocked_topk go through K4 on the card and return
+    what their CPU code returns, fill slots included."""
+    from rag_dpo_tpu_torch.ops.topk import approx_topk, blocked_topk
+
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
+    e = torch.from_numpy(rng.standard_normal((900, 64)).astype(np.float32))
+    pen = torch.zeros(900)
+    pen[::5] = -1e4
+    for fn in (approx_topk, blocked_topk):
+        for n in (900, 10):              # k > N: the fill slots
+            before = _kernels.LAUNCHES["fused_topk"]
+            cs, ci = fn(q, e[:n], 40, penalty=pen[:n])
+            gs, gi = fn(q.to(dev), e[:n].to(dev), 40, penalty=pen[:n].to(dev))
+            assert _kernels.LAUNCHES["fused_topk"] == before + 1
+            assert torch.equal(gi.cpu(), ci)
+            torch.testing.assert_close(gs.cpu(), cs, atol=1e-5, rtol=0)
+
+
+def test_fused_topk_kernel_rejects_what_it_does_not_take(dev):
+    from rag_dpo_tpu_torch.ops.topk import fused_topk
+
+    q = torch.zeros((2, 64), device=dev)
+    e = torch.zeros((100, 64), device=dev)
+    for bad_q, bad_e, k in ((q, e, 257),                        # k
+                            (q, e, 0),
+                            (q[:, :60], e[:, :60], 10),         # D % 8
+                            (torch.zeros((1, 1032), device=dev),
+                             torch.zeros((9, 1032), device=dev), 4),  # D
+                            (q.bfloat16(), e, 10),              # dtypes
+                            (q.double(), e.double(), 10),
+                            (q, e.T.contiguous().T, 10),         # strides
+                            (q.cpu(), e, 10)):                   # devices
+        with pytest.raises(ValueError):
+            fused_topk(bad_q, bad_e, k)
+    # the card keeps running after a refused shape
+    s, i = fused_topk(q, e, 4)
+    assert i[0].tolist() == [0, 1, 2, 3] and (s == 0).all()
+
+
+def _pooled_case(gen, dev, q, n, d, pen):
+    from rag_dpo_tpu_torch.ops.quantize import quantize_rows
+
+    e = torch.randn((n, d), generator=gen, device=dev)
+    e = e / e.norm(dim=1, keepdim=True)
+    e_i8, e_scale = quantize_rows(e)
+    queries = torch.randn((q, d), generator=gen, device=dev)
+    queries = (queries / queries.norm(dim=1, keepdim=True)).bfloat16()
+    penalty = None
+    if pen is not None:
+        penalty = torch.zeros(n if pen == "full" else n - n // 9, device=dev)
+        penalty[torch.rand(penalty.shape, generator=gen, device=dev)
+                < 0.1] = -1e4
+    return queries, e_i8, e_scale, penalty
+
+
+def assert_pooled_close(kv, ki, pv, pi, queries, e_i8, e_scale, penalty,
+                        block_n, group):
+    """Values within one bf16 ulp; ids equal but where the group's two
+    best f32 scores (the twin's arithmetic) lie within 1e-5. Returns the
+    number of such near-tie groups whose id differs."""
+    assert kv.dtype == torch.bfloat16 and ki.dtype == torch.int32
+    assert kv.shape == pv.shape and ki.shape == pi.shape
+    ulp = torch.ldexp(torch.ones_like(pv.float()),
+                      torch.frexp(pv.float()).exponent - 8)
+    assert bool(((kv.float() - pv.float()).abs() <= ulp).all())
+    q, n = queries.shape[0], e_i8.shape[0]
+    nb = -(-n // block_n)
+    s = (queries.float() @ e_i8.float().T) * e_scale
+    if penalty is not None:
+        pen = torch.full((n,), -5e29, device=s.device)
+        pen[:penalty.shape[0]] = penalty[:n]
+        s = s + pen
+    full = torch.full((q, nb * block_n), -1e30, device=s.device)
+    full[:, :n] = s
+    top2 = full.reshape(q, nb, group, block_n // group).topk(2, dim=2).values
+    near = (top2[:, :, 0] - top2[:, :, 1] <= NEAR_TIE).reshape(q, -1)
+    differ = ki != pi
+    assert not bool((differ & ~near).any())
+    return int(differ.sum())
+
+
+@pytest.mark.parametrize("q,n,d,block_n,group,pen", [
+    (4, 20_000, 1024, 8192, 64, "full"),
+    (1, 9000, 64, 8192, 64, None),
+    (70, 5000, 128, 1024, 8, "short"),      # 64-query tiles
+    (3, 700, 32, 256, 2, "full"),
+    (2, 1000, 16, 96, 4, None),             # 24 groups a block
+    (256, 100_000, 1024, 8192, 64, "full"),
+])
+def test_pooled_kernel_matches_plain(dev, q, n, d, block_n, group, pen):
+    from rag_dpo_tpu_torch.ops.pooled import (
+        pooled_group_max,
+        pooled_group_max_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(q + n + group)
+    args = _pooled_case(gen, dev, q, n, d, pen)
+    before = _kernels.LAUNCHES["pooled_max"]
+    kv, ki = pooled_group_max(*args, block_n=block_n, group=group)
+    assert _kernels.LAUNCHES["pooled_max"] == before + 1
+    pv, pi = pooled_group_max_plain(*args, block_n=block_n, group=group)
+    torch.cuda.synchronize()
+    assert_pooled_close(kv, ki, pv, pi, *args, block_n, group)
+    kv2, ki2 = pooled_group_max(*args, block_n=block_n, group=group)
+    assert torch.equal(kv2, kv) and torch.equal(ki2, ki)
+
+
+def test_pooled_kernel_rejects_what_it_does_not_take(dev):
+    from rag_dpo_tpu_torch.ops.pooled import pooled_group_max
+
+    q = torch.zeros((2, 64), dtype=torch.bfloat16, device=dev)
+    e = torch.zeros((100, 64), dtype=torch.int8, device=dev)
+    sc = torch.ones(100, device=dev)
+    for args, kw in (((q.float(), e, sc), {}),                 # bf16 queries
+                     ((q, e.float(), sc), {}),                 # int8 rows
+                     ((q[:, :56], e[:, :56], sc), {}),         # D % 16
+                     ((q, e, sc[:50]), {}),                    # scale shape
+                     ((q, e, sc), {"block_n": 100, "group": 64}),
+                     ((q.cpu(), e, sc), {})):
+        with pytest.raises(ValueError):
+            pooled_group_max(*args, **kw)
+    v, i = pooled_group_max(q, e, sc, block_n=64, group=8)
+    assert v.shape == (2, 16) and (i >= 0).all() and (v == 0).all()
+
+
+def test_int8_store_on_the_card_matches_the_cpu(dev):
+    """The int8 arm on the card launches K6 (and K4 nowhere), runs no
+    twin, and returns the CPU's ids and exactly refined scores."""
+    from rag_dpo_tpu_torch.index import DeviceIndex, IndexConfig
+
+    rng = np.random.default_rng(6)
+    dense = rng.standard_normal((40_000, 64)).astype(np.float32)
+    dense /= np.linalg.norm(dense, axis=1, keepdims=True)
+    terms = rng.integers(0, 500, (40_000, 8)).astype(np.int32)
+    imps = np.abs(rng.standard_normal((40_000, 8))).astype(np.float32)
+    ids = [f"r{i}" for i in range(40_000)]
+    q = rng.standard_normal((16, 64)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qt, qw = terms[:16], np.ones((16, 8), np.float32)
+    out = {}
+    for device in ("cpu", dev):
+        idx = DeviceIndex(IndexConfig(dim=64, ell_width=8,
+                                      quantize_int8=True,
+                                      postings_threshold=1000), device=device)
+        idx.add(ids, dense, terms=terms, impacts=imps)
+        idx.delete(ids[::50])
+        before = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_ON_CUDA)
+        out[str(device)] = (idx.search_dense(q, 40),
+                            idx.search_sparse(qt, qw, 40))
+    assert _kernels.LAUNCHES["pooled_max"] == before[0]["pooled_max"] + 1
+    assert _kernels.LAUNCHES["fused_topk"] == before[0]["fused_topk"]
+    assert _kernels.PLAIN_ON_CUDA == before[1]
+    (cs, ci), (css, csi) = out["cpu"]
+    (gs, gi), (gss, gsi) = out[str(dev)]
+    # K6 and its CPU twin may round a pooled value one bf16 ulp apart,
+    # which can move a candidate across the 4k cut: recall, and the same
+    # exactly refined score wherever the ids agree
+    recall = np.mean([len(set(a) & set(b)) / 40 for a, b in zip(gi, ci)])
+    assert recall >= 0.99
+    same = gi == ci
+    np.testing.assert_array_equal(gs[same], cs[same])
+    # the postings engine adds in float64: the same bits on both devices
+    np.testing.assert_array_equal(gsi, csi)
+    np.testing.assert_array_equal(gss, css)

@@ -115,12 +115,16 @@ def _port_config():
 
 
 def test_unported_engines_raise(corpus):
+    """Int8 storage and the postings engine are ported (slice 4); the
+    on-card int8 refine is not, and raises with its queue number."""
     from rag_dpo_tpu_torch.index import IndexConfig
 
-    with pytest.raises(NotImplementedError):
-        DeviceIndex(IndexConfig(dim=16, quantize_int8=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        DeviceIndex(IndexConfig(dim=16, quantize_int8=True,
+                                device_refine=True), device="cpu")
+    DeviceIndex(IndexConfig(dim=16, quantize_int8=True), device="cpu")
     idx = DeviceIndex(_port_config(), device="cpu")
     _fill(idx, corpus, 0, 20)
-    heavy = np.full((8, 32), -2, np.int32)
-    with pytest.raises(NotImplementedError):
-        idx.search_sparse(heavy, np.zeros((8, 32), np.float32), 10)
+    heavy = np.full((8, 32), -2, np.int32)   # Q·T > 128: the postings engine
+    s, i = idx.search_sparse(heavy, np.zeros((8, 32), np.float32), 10)
+    assert i.shape == (8, 10) and (i == -1).all() and (s == -1e30).all()

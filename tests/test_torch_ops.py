@@ -26,11 +26,13 @@ from rag_dpo_tpu_torch.ops.flash_attention import (
 from rag_dpo_tpu_torch.ops.flash_attention_bwd import flash_attention_fused
 from rag_dpo_tpu_torch.ops.fusion import rrf_fuse, rrf_fuse_reference
 from rag_dpo_tpu_torch.ops.maxsim import maxsim
+from rag_dpo_tpu_torch.ops.pooled import pooled_group_max
 from rag_dpo_tpu_torch.ops.sparse import ell_scores, ell_scores_reference, ell_topk
 from rag_dpo_tpu_torch.ops.topk import (
     approx_topk,
     blocked_topk,
     cosine_topk_reference,
+    fused_topk,
     streaming_topk_reference,
 )
 
@@ -263,8 +265,13 @@ def test_wrappers_take_plain_twin_on_cpu_without_launching():
     maxsim(torch.zeros((1, 3, 8)), torch.ones((1, 3), dtype=torch.bool),
            torch.zeros((2, 4, 8), dtype=torch.float16),
            torch.ones((2, 4), dtype=torch.bool))
+    fused_topk(torch.zeros((2, 8)), torch.zeros((5, 8)), 3)
+    pooled_group_max(torch.zeros((2, 16), dtype=torch.bfloat16),
+                     torch.zeros((40, 16), dtype=torch.int8), torch.ones(40),
+                     block_n=16, group=4)
     none = {name: 0 for name in ("flash_fwd", "ell_topk", "flash_bwd_dq",
-                                 "flash_bwd_dkv", "maxsim")}
+                                 "flash_bwd_dkv", "maxsim", "fused_topk",
+                                 "pooled_max")}
     assert _kernels.LAUNCHES == none
     assert _kernels.PLAIN_ON_CUDA == none
 

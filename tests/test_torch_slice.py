@@ -1,7 +1,8 @@
 """Slice 1 end to end: the port against the JAX package on the hermetic
 synthetic corpus, and the port alone with jax refused at import (the query
-path, slice 2's train step, checkpoint and npz export, and slice 3's
-MaxSim rerank and hermetic replay module).
+path, slice 2's train step, checkpoint and npz export, slice 3's MaxSim
+rerank and hermetic replay module, and slice 4's int8 and postings
+searches).
 
 Both stacks use the same exported Flax parameters (tiny encoder in
 reference-attention mode and ELL width 48, as `evals/hermetic.py` builds
@@ -214,6 +215,24 @@ BLOCKED_RUN = textwrap.dedent("""
     cb_resp = pipe.query(dataset[1]["question"])
     assert cb_resp.sources and cb_resp.error is None, cb_resp
     assert callable(run_hermetic_replay)
+
+    # int8 storage and the postings engine (slice 4)
+    import numpy as np
+    from rag_dpo_tpu_torch.index import DeviceIndex, IndexConfig
+
+    rng = np.random.default_rng(0)
+    dense = rng.standard_normal((300, 64)).astype(np.float32)
+    dense /= np.linalg.norm(dense, axis=1, keepdims=True)
+    terms = rng.integers(0, 50, (300, 8)).astype(np.int32)
+    imps = np.abs(rng.standard_normal((300, 8))).astype(np.float32)
+    i8 = DeviceIndex(IndexConfig(dim=64, ell_width=8, quantize_int8=True,
+                                 postings_threshold=100), device="cpu")
+    i8.add([f"r{i}" for i in range(300)], dense, terms=terms, impacts=imps)
+    _, r8 = i8.search_dense(dense[:3], 5)
+    assert (r8[:, 0] == [0, 1, 2]).all(), r8
+    _, rp = i8.search_sparse(terms[:2, :4].copy(), np.ones((2, 4),
+                                                           np.float32), 5)
+    assert (rp[:, 0] >= 0).all(), rp
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
