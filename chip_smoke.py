@@ -15,7 +15,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    the training shape too; ELL at the hermetic replay's width 48 too;
    MaxSim at the rerank's full width and the replay's; the fused dense
    top-k at the serve shape and over 1M rows, the pooled int8 sweep over
-   1M rows, at batches 1, 64 and 256), then flash attention's dq and
+   1M rows, at batches 1, 64 and 256), the per-segment candidates (K5)
+   through their own path, `ops.fused_candidates_topk` at
+   bench_fused_cand.py's recipe over 1M bf16 rows at batches 1, 64 and
+   256 (per_seg 2, and 1 at 64), held to the twin, to the same bits twice
+   and by recall@40 against K4 (≥ 0.99 at per_seg 2), then flash
+   attention's dq and
    dk/dv kernels at the training shape and others; timed with CUDA events
    and the profiler, beside each kernel's bound and, where one PyTorch
    call computes the same function, that call's time;
@@ -55,10 +60,11 @@ Phases, in order; any failure exits non-zero before the result lines:
 
 The second-to-last line is a JSON object with each kernel's launches in
 the phase of the main path that runs it (serve for the ELL kernel, MaxSim
-serve for K7, train for the flash kernels, scale for K4 and K6), its max
-abs error against the twin, its times, its bound and the library call's
-time; the last line is `{"ok": true, "device": {...}}`. There is no CPU
-path.
+serve for K7, train for the flash kernels, scale for K4 and K6, and for
+K5 its own path in the kernel phase: no other path calls it, as in the
+JAX package), its max abs error against the twin, its times, its bound
+and the library call's time; the last line is `{"ok": true, "device":
+{...}}`. There is no CPU path.
 """
 
 from __future__ import annotations
@@ -93,6 +99,8 @@ SCALE_N, SCALE_DIM, SCALE_ELL, SCALE_VOCAB, SCALE_TERMS = (
     1_000_000, 1024, 24, 50_000, 16)
 SCALE_BATCHES = (1, 64, 256)
 SCALE_MIN_RECALL = 0.99
+# bench_fused_cand.py:62-65: K5's recipe (and per_seg 2 or 1) over such rows
+CAND_RECIPE, CAND_K = {"block_n": 2048, "seg": 128}, 40
 # K4 and K6 sum each dot in d order, their twins in cuBLAS's, both in f32:
 # scores agree within 1e-5, and ids but where two rows (K6: the two best of
 # a group) lie within 1e-5 of each other
@@ -691,6 +699,141 @@ def check_fused_topk(dev, gen) -> dict:
                              "output, then topk",
             "shape": f"[{SCALE_BATCHES[-1]}x1024]x[{e.shape[0]}x1024] bf16 "
                      "k=40", **out}
+
+
+def candidates_gap(q, e, pen, got, want, label) -> tuple:
+    """Scores of `got` (the kernel's strip or top-k) against `want` (the
+    twin's): the max abs error, which must stay within NEAR_TIE (relative
+    past 1: a row under a −1e4 penalty rounds to 2⁻¹⁰); ids must be equal
+    but where the twin's score of the kernel's row lies that close to the
+    slot's. Returns the error and the number of such near-tie ids."""
+    import torch
+
+    (ks, ki), (ps, pi) = got, want
+    tol = NEAR_TIE * ps.abs().clamp_min(1.0)
+    check(bool(((ks - ps).abs() <= tol).all()),
+          f"fused_candidates {label}: scores differ by "
+          f"{float((ks - ps).abs().max())}")
+    check(torch.equal(ki >= 0, pi >= 0),
+          f"fused_candidates {label}: the valid ids differ")
+    r, c = (ki != pi).nonzero(as_tuple=True)
+    if len(r):
+        rows = ki[r, c].long()
+        twin = (q[r].float() * e[rows].float()).sum(1) + pen[rows]
+        check(bool(((twin - ps[r, c]).abs() <= tol[r, c]).all()),
+              f"fused_candidates {label}: an id differs outside a near-tie")
+    return float((ks - ps).abs().max()), len(r)
+
+
+def check_fused_candidates(dev, seed: int) -> dict:
+    """K5 at bench_fused_cand.py's recipe (block_n 2048, seg 128, k 40)
+    over 1M bf16 rows made by `scale_rows` from a generator of its own
+    (seed + 5), at batches 1, 64 and 256 with per_seg 2 and at 64 with
+    per_seg 1: first its path, the public `ops.fused_candidates_topk` once
+    a run with the counts from 0, then strip and top-40 against the twin,
+    the same bits twice, recall@40 against K4's exact top-40 on the same
+    rows (≥ 0.99 at per_seg 2), and the times of the kernel, the entry
+    point (the kernel and the plain phase-2 sort), the twin, K4 and
+    `torch.topk(addmm)`."""
+    import torch
+
+    from rag_dpo_tpu_torch import ops
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.ops.topk import (
+        fused_candidates_topk_plain,
+        fused_topk,
+        seg_candidates,
+        seg_candidates_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    rows, pen = scale_rows(dev, gen)
+    e = rows.to(torch.bfloat16)
+    del rows
+    n = e.shape[0]
+    queries = {nq: unit_queries(dev, gen, nq).to(torch.bfloat16)
+               for nq in SCALE_BATCHES}
+    runs = [(nq, 2) for nq in SCALE_BATCHES] + [(64, 1)]
+
+    def entry(nq, per_seg):
+        return ops.fused_candidates_topk(queries[nq], e, CAND_K, penalty=pen,
+                                         per_seg=per_seg, **CAND_RECIPE)
+
+    _kernels.reset_counts()
+    for nq, per_seg in runs:
+        entry(nq, per_seg)
+    torch.cuda.synchronize()
+    launches = _kernels.LAUNCHES["fused_candidates"]
+    check(launches == len(runs) and not any(_kernels.PLAIN_ON_CUDA.values()),
+          f"fused_candidates path: launches {launches}, plain "
+          f"{_kernels.PLAIN_ON_CUDA}")
+    log(f"fused_candidates path: ops.fused_candidates_topk at {runs} "
+        f"(Q, per_seg) launched K5 {launches} times, no twin")
+
+    out, worst = {"launches": launches}, 0.0
+    for nq, per_seg in runs:
+        q = queries[nq]
+        kw = dict(penalty=pen, per_seg=per_seg, **CAND_RECIPE)
+        label = f"1M Q={nq} per_seg={per_seg}"
+        strip, top = seg_candidates(q, e, **kw), entry(nq, per_seg)
+        err_s, ties_s = candidates_gap(
+            q, e, pen, strip, seg_candidates_plain(q, e, **kw),
+            f"{label} strip")
+        err_t, ties_t = candidates_gap(
+            q, e, pen, top, fused_candidates_topk_plain(q, e, CAND_K, **kw),
+            f"{label} top-{CAND_K}")
+        again = seg_candidates(q, e, **kw) + entry(nq, per_seg)
+        check(all(torch.equal(a, b) for a, b in zip(strip + top, again)),
+              f"fused_candidates {label}: two runs differ")
+        worst = max(worst, err_s, err_t)
+        exact = fused_topk(q, e, CAND_K, penalty=pen)[1]
+        recall = float((top[1][:, :, None] == exact[:, None, :]).any(2)
+                       .float().mean())
+        if per_seg == 2:
+            check(recall >= SCALE_MIN_RECALL,
+                  f"fused_candidates {label}: recall@{CAND_K} {recall}")
+        _kernels.reset_counts()
+        ms = cuda_ms(lambda: seg_candidates(q, e, **kw), iters=10)
+        entry_ms = cuda_ms(lambda: entry(nq, per_seg), iters=10)
+        k4_ms = cuda_ms(lambda: fused_topk(q, e, CAND_K, penalty=pen),
+                        iters=10)
+        check(_kernels.LAUNCHES["fused_candidates"] > 0
+              and not any(_kernels.PLAIN_ON_CUDA.values()),
+              f"fused_candidates {label}: timed calls ran "
+              f"{_kernels.LAUNCHES} / plain {_kernels.PLAIN_ON_CUDA}")
+        plain_ms = cuda_ms(lambda: seg_candidates_plain(q, e, **kw), iters=3,
+                           warmup=1)
+        pen16 = pen.to(torch.bfloat16)[None, :]
+        lib_ms = cuda_ms(lambda: torch.topk(torch.addmm(pen16, q, e.T),
+                                            CAND_K), iters=10)
+        dms = device_ms(lambda: seg_candidates(q, e, **kw), iters=5,
+                        launches=1)
+        # the [Q, W] strip takes the place of K4's [Q, k] output
+        bnd = fused_topk_bound(nq, n, SCALE_DIM, strip[0].shape[1], 2)
+        log(f"fused_candidates [{nq}x1024]x[{n}x1024] bf16 per_seg="
+            f"{per_seg} (strip {strip[0].shape[1]}): max_abs_err strip "
+            f"{err_s:.3g}, top-{CAND_K} {err_t:.3g}, near-tie ids {ties_s}, "
+            f"{ties_t}; recall@{CAND_K} vs K4 {recall:.5f}; kernel_ms="
+            f"{ms:.4f} (device {fmt_ms(dms)}) entry_ms={entry_ms:.4f} "
+            f"plain_ms={plain_ms:.4f}; K4 {k4_ms:.4f} ms; torch.topk(addmm) "
+            f"{lib_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}), on the f32 cores "
+            f"{bnd['f32_cores_bound_ms']:.4f} ms")
+        key = f"q{nq}" + ("" if per_seg == 2 else f"_per_seg{per_seg}")
+        out[key] = {"ms": ms, "device_ms": dms, "entry_ms": entry_ms,
+                    "plain_ms": plain_ms, "k4_ms": k4_ms,
+                    "library_ms": lib_ms, f"recall_at_{CAND_K}": recall,
+                    "near_tie_ids": ties_s + ties_t,
+                    "strip_width": strip[0].shape[1], **bnd}
+    main = out.pop(f"q{SCALE_BATCHES[-1]}")
+    return {"max_abs_err": worst, **main,
+            "library_calls": "torch.topk(torch.addmm(pen, q, e.T), k): the "
+                             "exact top-k K5 approximates, on the bf16 "
+                             "tensor cores",
+            "shape": f"[{SCALE_BATCHES[-1]}x1024]x[{n}x1024] bf16, block_n "
+                     f"{CAND_RECIPE['block_n']}, seg {CAND_RECIPE['seg']}, "
+                     f"per_seg 2, k {CAND_K}", **out}
 
 
 def check_pooled(dev, gen) -> dict:
@@ -1369,6 +1512,9 @@ def main() -> int:
     k4 = check_fused_topk(dev, gen)
     gc.collect()
     torch.cuda.empty_cache()
+    k5 = check_fused_candidates(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     k6 = check_pooled(dev, gen)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1449,6 +1595,10 @@ def main() -> int:
          "replaces": "rag_dpo_tpu/ops/pooled.py:44",
          "launches": scale["launches"]["pooled_max"],
          **k6},
+        {"name": "fused_candidates", "route": "cuda",
+         "source": "rag_dpo_tpu_torch/csrc/seg_candidates.cu",
+         "replaces": "rag_dpo_tpu/ops/topk.py:136",
+         **k5},
     ]
     maxsim = path["maxsim"]
     log(json.dumps({"kernels": kernels, "build_s": build_s,

@@ -15,9 +15,10 @@
 //
 // Pass 1, grid (row chunks, query tiles), 256 threads. A block walks its
 // chunk of rows in 128-row tiles. Per tile: a SIMT product of the query tile
-// (16 or 64 queries) with the 128 rows, D in 32-wide slices staged through
-// shared memory as f32 (the next slice is loaded into registers while the
-// current one is multiplied), each thread holding 1x8 or 4x8 sums; then one
+// (16 or 64 queries) with the 128 rows (csrc/tile_product.cuh: D in 32-wide
+// slices staged through shared memory as f32, the next slice loaded into
+// registers while the current one is multiplied), each thread holding 1x8 or
+// 4x8 sums; then one
 // warp per query keeps a sorted running top-k in shared memory: the tile's
 // scores that beat the running k-th key are compacted by a ballot and merged
 // in by rank (binary search into the running list, pairwise among the new
@@ -31,18 +32,13 @@
 // costs a compare per score once the list is full; merges are rare after the
 // first tiles. wgmma (bf16 products are exact in f32) is for a later PR.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "tile_product.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileN = 128;           // rows per tile
-constexpr int kChunk = 32;            // D per shared-memory slice
-constexpr int kLdE = kTileN + 4;      // padded row of the transposed slice
 constexpr int kLdS = kTileN + 1;      // padded row of the score tile
 constexpr int kMaxK = 256;
 constexpr float kNegInf = -1e30f;
@@ -50,29 +46,6 @@ constexpr float kPastPenalty = -5e29f;
 
 __device__ __forceinline__ bool better(float s1, int r1, float s2, int r2) {
   return s1 > s2 || (s1 == s2 && r1 < r2);
-}
-
-// 8 consecutive elements, loaded with 16-byte loads and widened to f32
-__device__ __forceinline__ void load8(const float* p, bool ok, float* out) {
-  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-  if (ok) {
-    a = __ldg(reinterpret_cast<const float4*>(p));
-    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  }
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, bool ok,
-                                      float* out) {
-  uint4 u = make_uint4(0u, 0u, 0u, 0u);
-  if (ok) u = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 is the high half of an f32
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 
 // Merge p new entries (ps/pi, any order) into the sorted running list
@@ -149,31 +122,6 @@ __device__ int filter_merge(float* ls, int* li, int cnt, float* ps, int* pi,
   return warp_merge(ls, li, cnt, ps, pi, p, k, lane);
 }
 
-// The next D slice of the row tile and the query tile, into registers:
-// kEUnits 8-element loads of rows per thread, one of queries for the first
-// TQ·4 threads; zeros past N, Q and D.
-template <typename T, int MQ>
-__device__ __forceinline__ void load_slice(
-    const T* __restrict__ q, const T* __restrict__ e, int Q, int N, int D,
-    int q0, int base, int c, int tid,
-    float (&ev)[kTileN * (kChunk / 8) / kThreads][8], float (&qv)[8]) {
-  constexpr int kEUnits = kTileN * (kChunk / 8) / kThreads;
-#pragma unroll
-  for (int u = 0; u < kEUnits; ++u) {
-    const int id = tid + kThreads * u;
-    const int r = id >> 2, d = c * kChunk + (id & 3) * 8;
-    const bool ok = base + r < N && d < D;
-    load8(e + static_cast<size_t>(ok ? base + r : 0) * D + (ok ? d : 0), ok,
-          ev[u]);
-  }
-  if (tid < 16 * MQ * (kChunk / 8)) {
-    const int r = tid >> 2, d = c * kChunk + (tid & 3) * 8;
-    const bool ok = q0 + r < Q && d < D;
-    load8(q + static_cast<size_t>(ok ? q0 + r : 0) * D + (ok ? d : 0), ok,
-          qv);
-  }
-}
-
 template <typename T, int MQ>
 __global__ void __launch_bounds__(kThreads, 2)
 topk_tiles(const T* __restrict__ q, const T* __restrict__ e,
@@ -182,8 +130,6 @@ topk_tiles(const T* __restrict__ q, const T* __restrict__ e,
            int* __restrict__ cand_i) {
   constexpr int TQ = 16 * MQ;
   constexpr int kLdQ = TQ + 4;
-  constexpr int kQUnits = TQ * (kChunk / 8);        // 8-element loads
-  constexpr int kEUnits = kTileN * (kChunk / 8) / kThreads;  // per thread
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);       // [kChunk][kLdQ]
   float* es = qs + kChunk * kLdQ;                     // [kChunk][kLdE]
@@ -199,62 +145,16 @@ topk_tiles(const T* __restrict__ q, const T* __restrict__ e,
   const int q0 = blockIdx.y * TQ;
   const int row_begin = blockIdx.x * rows_per_block;
   const int row_end = min(N, row_begin + rows_per_block);
-  const int n_chunks = (D + kChunk - 1) / kChunk;
   for (int i = tid; i < TQ; i += kThreads) lcnt[i] = 0;
 
   for (int base = row_begin; base < row_end; base += kTileN) {
     float acc[MQ][8];
-#pragma unroll
-    for (int i = 0; i < MQ; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    tile_product<T, MQ>(q, e, Q, N, D, q0, base, tid, qs, es, acc);
 
-    float ev[kEUnits][8], qv[8];
-    load_slice<T, MQ>(q, e, Q, N, D, q0, base, 0, tid, ev, qv);
-    for (int c = 0; c < n_chunks; ++c) {
-#pragma unroll
-      for (int u = 0; u < kEUnits; ++u) {
-        const int id = tid + kThreads * u;
-        const int r = id >> 2, d0 = (id & 3) * 8;
-#pragma unroll
-        for (int x = 0; x < 8; ++x) es[(d0 + x) * kLdE + r] = ev[u][x];
-      }
-      if (tid < kQUnits) {
-        const int r = tid >> 2, d0 = (tid & 3) * 8;
-#pragma unroll
-        for (int x = 0; x < 8; ++x) qs[(d0 + x) * kLdQ + r] = qv[x];
-      }
-      __syncthreads();
-      if (c + 1 < n_chunks)
-        load_slice<T, MQ>(q, e, Q, N, D, q0, base, c + 1, tid, ev, qv);
-#pragma unroll 8
-      for (int kk = 0; kk < kChunk; ++kk) {
-        float a[MQ], b[8];
-        if constexpr (MQ == 4) {
-          const float4 t = *reinterpret_cast<const float4*>(
-              qs + kk * kLdQ + ty * 4);
-          a[0] = t.x; a[1] = t.y; a[2] = t.z; a[3] = t.w;
-        } else {
-          a[0] = qs[kk * kLdQ + ty];
-        }
-        const float4 b0 =
-            *reinterpret_cast<const float4*>(es + kk * kLdE + tx * 4);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(es + kk * kLdE + 64 + tx * 4);
-        b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-        b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-        for (int i = 0; i < MQ; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-    // scores (+ penalty) to the shared tile: row tx*4 + j, 64 + tx*4 + j
+    // scores (+ penalty) to the shared tile
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int r = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
+      const int r = tile_col(tx, j);
       float add = 0.f;
       if (pen != nullptr) add = base + r < P ? pen[base + r] : kPastPenalty;
 #pragma unroll
@@ -341,7 +241,7 @@ cudaError_t launch_tiles(const void* q, const void* e, const float* pen,
                          float* cand_s, int* cand_i, cudaStream_t st) {
   constexpr int TQ = 16 * MQ;
   const size_t smem =
-      sizeof(float) * (kChunk * (TQ + 4) + kChunk * kLdE + TQ * kLdS) +
+      sizeof(float) * (product_smem_floats<MQ>() + TQ * kLdS) +
       8 * static_cast<size_t>(TQ) * k + 8 * kWarps * kTileN + 4 * TQ;
   cudaError_t err = cudaFuncSetAttribute(
       topk_tiles<T, MQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -29,6 +29,7 @@ from .topk import (  # noqa: E402,F401
     approx_topk,
     blocked_topk,
     cosine_topk_reference,
+    fused_candidates_topk,
     fused_topk,
     streaming_topk_reference,
 )

@@ -4,7 +4,8 @@ Each `csrc/<source>.cu` exposes a plain C interface: one entry point per
 kernel, named after the kernel (`KERNELS` maps each kernel to its source).
 At first use a source is compiled with `nvcc` for Hopper (`sm_90a`) into a
 shared library under `rag_dpo_tpu_torch/build/`, named after a hash of its
-source and flags (so an edited source rebuilds), and loaded with `ctypes`.
+source, the shared headers (`csrc/*.cuh`) and the flags (so an edited source
+rebuilds), and loaded with `ctypes`.
 Pointers and the current stream travel as `c_void_p`; every C entry point
 returns the `cudaGetLastError()` of its launch, which `check` turns into
 an exception.
@@ -36,7 +37,7 @@ BUILD_DIR = PKG_DIR / "build"
 KERNELS = {"flash_fwd": "flash_fwd", "ell_topk": "ell_topk",
            "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
            "maxsim": "maxsim", "fused_topk": "fused_topk",
-           "pooled_max": "pooled"}
+           "pooled_max": "pooled", "fused_candidates": "seg_candidates"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -70,6 +71,9 @@ SIGNATURES = {
     # q, e_i8, scale, penalty, P, Q, N, D, block_n, group, out_v, out_i,
     # stream
     "pooled_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # dtype, q, e, penalty, P, Q, N, D, block_n, seg, per_seg, tile_q,
+    # out_s, out_i, stream
+    "fused_candidates": [_I, _P, _P, _P, *[_I] * 8, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -99,9 +103,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> pathlib.Path:
-    src = CSRC_DIR / f"{source}.cu"
+    text = (CSRC_DIR / f"{source}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source}_{digest}.so"
 
 

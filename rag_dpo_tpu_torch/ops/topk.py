@@ -5,6 +5,13 @@
   CUDA tensors it launches the hand-written kernel in `csrc/fused_topk.cu`,
   on CPU tensors it runs `fused_topk_plain` (a matmul, the penalty and a
   stable sort). Equal scores keep the lowest row first (ROADMAP C-13).
+* `fused_candidates_topk` — the port of the JAX package's Pallas
+  `fused_candidates_topk` (K5): the best `per_seg` rows of every
+  `seg`-row segment into a candidate strip (`seg_candidates`, the kernel in
+  `csrc/seg_candidates.cu` on CUDA tensors, `seg_candidates_plain` on CPU
+  tensors), then an exact top-k over the strip in plain torch. It keeps
+  JAX's order among equal scores; no store path calls it, in either
+  package.
 * `cosine_topk_reference` — one matmul + exact top-k.
 * `blocked_topk` — the JAX scan over row blocks with a running merge,
   written out as a loop (penalty folding and padding kept exactly).
@@ -28,6 +35,8 @@ segment by (score desc, row asc) — ROADMAP C-1.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import _kernels
@@ -36,6 +45,7 @@ NEG_INF = -1e30
 _FUSED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FUSED_MAX_K = 256          # csrc/fused_topk.cu: kMaxK
 _FUSED_TILE_N = 128         # rows per tile; a block's rows are a multiple
+_SEG_MAX_SPAN = 512         # csrc/seg_candidates.cu: kMaxSpan
 
 
 def _sort_desc(x):
@@ -81,24 +91,23 @@ def fused_topk_plain(queries, embs, k: int, *, penalty=None):
     return vals, idxs
 
 
-def _fused_topk_kernel(queries, embs, k: int, penalty):
+def _check_dense(what: str, queries, embs, penalty):
+    """What the dense kernels (K4, K5) take, or ValueError; returns the
+    penalty as contiguous f32 (or None)."""
     if queries.dim() != 2 or embs.dim() != 2:
-        raise ValueError("fused_topk takes queries [Q, D] and embs [N, D]")
+        raise ValueError(f"{what} takes queries [Q, D] and embs [N, D]")
     (q, d), (n, dd) = queries.shape, embs.shape
     if dd != d:
         raise ValueError(f"queries have D={d}, embs D={dd}")
     if not (8 <= d <= 1024 and d % 8 == 0):
-        raise ValueError(f"the CUDA fused_topk kernel takes D a multiple of "
-                         f"8 from 8 to 1024, got {d}")
-    if not 1 <= k <= _FUSED_MAX_K:
-        raise ValueError(f"the CUDA fused_topk kernel takes 1 ≤ k ≤ "
-                         f"{_FUSED_MAX_K}, got {k}")
+        raise ValueError(f"the CUDA {what} kernel takes D a multiple of 8 "
+                         f"from 8 to 1024, got {d}")
     if q < 1 or n < 1:
-        raise ValueError(f"fused_topk takes no empty axis, got Q={q} N={n}")
+        raise ValueError(f"{what} takes no empty axis, got Q={q} N={n}")
     if embs.dtype not in _FUSED_DTYPES or queries.dtype != embs.dtype:
-        raise ValueError(f"the CUDA fused_topk kernel takes f32 or bf16 "
-                         f"queries and embs of one dtype, got "
-                         f"{queries.dtype} and {embs.dtype}")
+        raise ValueError(f"the CUDA {what} kernel takes f32 or bf16 queries "
+                         f"and embs of one dtype, got {queries.dtype} and "
+                         f"{embs.dtype}")
     dev = embs.device
     for name, x in (("queries", queries), ("penalty", penalty)):
         if x is not None and x.device != dev:
@@ -106,10 +115,19 @@ def _fused_topk_kernel(queries, embs, k: int, penalty):
     for name, x in (("queries", queries), ("embs", embs)):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if penalty is not None:
-        if penalty.dim() != 1:
-            raise ValueError("penalty must be [N]")
-        penalty = penalty.float().contiguous()
+    if penalty is None:
+        return None
+    if penalty.dim() != 1:
+        raise ValueError("penalty must be [N]")
+    return penalty.float().contiguous()
+
+
+def _fused_topk_kernel(queries, embs, k: int, penalty):
+    penalty = _check_dense("fused_topk", queries, embs, penalty)
+    if not 1 <= k <= _FUSED_MAX_K:
+        raise ValueError(f"the CUDA fused_topk kernel takes 1 ≤ k ≤ "
+                         f"{_FUSED_MAX_K}, got {k}")
+    (q, d), n, dev = queries.shape, embs.shape[0], embs.device
     # blocks of whole 128-row tiles, about four per SM over all query tiles
     tq = 16 if q <= 16 else 64
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -206,6 +224,123 @@ def approx_topk(queries, embs, k: int, oversample: int = 4, penalty=None):
         vals = torch.nn.functional.pad(vals, (0, pad), value=NEG_INF)
         idxs = torch.nn.functional.pad(idxs, (0, pad), value=-1)
     return vals, idxs.to(torch.int32)
+
+
+def seg_candidates_plain(queries, embs, *, penalty=None, block_n: int = 2048,
+                         seg: int = 128, per_seg: int = 2):
+    """Plain twin of K5: the candidate strip, ([Q, W] f32, [Q, W] int32),
+    W = ceil(N / block_n)·(block_n / seg)·per_seg.
+
+    Each `seg`-row segment's rounds are the head of a stable descending
+    sort of its scores (−0.0 folded into +0.0, as the reference's `==`
+    does); a round after the first is at least −1e30, the value the
+    reference masks its picks with. Picks ≤ −5e29 get id −1. Position
+    `j·nseg·per_seg + r·nseg + g` holds round r of segment g of block j."""
+    if embs.is_cuda:
+        _kernels.PLAIN_ON_CUDA["fused_candidates"] += 1
+    q, n = queries.shape[0], embs.shape[0]
+    nb, nseg = -(-n // block_n), block_n // seg
+    s = _scores(queries, embs)
+    if penalty is not None:
+        s = s + _full_penalty(penalty, n, embs.device)[None, :]
+    s = torch.nn.functional.pad(s, (0, nb * block_n - n), value=NEG_INF)
+    vals, pos = _sort_desc(s.reshape(q * nb * nseg, seg))
+    vals, pos = vals[:, :per_seg], pos[:, :per_seg]
+    vals[:, 1:] = vals[:, 1:].clamp_min(NEG_INF)
+    first = torch.arange(nb * nseg, device=embs.device).repeat(q) * seg
+    ids = torch.where(vals > NEG_INF / 2, pos + first[:, None], -1)
+
+    def strip(x):  # [Q·nb·nseg, per_seg] -> block, round, segment
+        return x.reshape(q, nb, nseg, per_seg).transpose(2, 3).reshape(q, -1)
+
+    return strip(vals), strip(ids.to(torch.int32))
+
+
+def _seg_candidates_kernel(queries, embs, penalty, block_n, tile_q, seg,
+                           per_seg):
+    penalty = _check_dense("fused_candidates", queries, embs, penalty)
+    if not (seg > 0 and seg % 32 == 0 and block_n > 0 and block_n % seg == 0
+            and math.lcm(seg, _FUSED_TILE_N) <= _SEG_MAX_SPAN):
+        raise ValueError(f"the CUDA fused_candidates kernel takes seg a "
+                         f"multiple of 32 dividing block_n with lcm(seg, 128) "
+                         f"≤ {_SEG_MAX_SPAN}, got seg={seg} block_n={block_n}")
+    if not 1 <= per_seg <= seg:
+        raise ValueError(f"the CUDA fused_candidates kernel takes 1 ≤ per_seg "
+                         f"≤ seg, got {per_seg}")
+    if tile_q < 1:
+        raise ValueError(f"tile_q must be positive, got {tile_q}")
+    (q, d), n, dev = queries.shape, embs.shape[0], embs.device
+    tq = 16 if min(q, tile_q) <= 16 else 64
+    width = -(-n // block_n) * (block_n // seg) * per_seg
+    out_s = torch.empty((q, width), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, width), dtype=torch.int32, device=dev)
+    lib = _kernels.load("fused_candidates")
+    with torch.cuda.device(dev):
+        err = lib.fused_candidates(
+            _FUSED_DTYPES[embs.dtype], _kernels.ptr(queries),
+            _kernels.ptr(embs), _kernels.ptr(penalty),
+            0 if penalty is None else penalty.shape[0], q, n, d, block_n,
+            seg, per_seg, tq, _kernels.ptr(out_s), _kernels.ptr(out_i),
+            _kernels.stream_of(embs))
+    _kernels.check(lib, err, "fused_candidates")
+    _kernels.LAUNCHES["fused_candidates"] += 1
+    return out_s, out_i
+
+
+def seg_candidates(queries, embs, *, penalty=None, block_n: int = 2048,
+                   tile_q: int = 64, seg: int = 128, per_seg: int = 2):
+    """Phase 1 of `fused_candidates_topk`: the candidate strip of
+    `seg_candidates_plain`. On CUDA it launches K5 (`csrc/seg_candidates.cu`,
+    `tile_q` rounded to its 16- or 64-query tiles): queries and embs both
+    f32 or both bf16, contiguous, D a multiple of 8 up to 1024, seg a
+    multiple of 32 dividing block_n with lcm(seg, 128) ≤ 512, 1 ≤ per_seg ≤
+    seg; anything else raises."""
+    if embs.is_cuda:
+        return _seg_candidates_kernel(queries, embs, penalty, block_n, tile_q,
+                                      seg, per_seg)
+    return seg_candidates_plain(queries, embs, penalty=penalty,
+                                block_n=block_n, seg=seg, per_seg=per_seg)
+
+
+def _select_candidates(cand_s, cand_i, k: int, n: int):
+    """Phase 2: exact top-min(k, N) over the strip, the lowest strip
+    position first among equal scores (the reference's `lax.top_k`, and
+    above a width of 4,096 the CPU `approx_max_k` before it, which is exact
+    and stable there: C-2); (−1e30, −1) past it."""
+    kk = min(k, n, cand_s.shape[1])
+    top, pos = _sort_desc(cand_s)
+    top, pos = top[:, :kk], pos[:, :kk]
+    ids = torch.where(top > NEG_INF / 2, torch.gather(cand_i, 1, pos), -1)
+    if kk < k:
+        top = torch.nn.functional.pad(top, (0, k - kk), value=NEG_INF)
+        ids = torch.nn.functional.pad(ids, (0, k - kk), value=-1)
+    return top, ids
+
+
+def fused_candidates_topk_plain(queries, embs, k: int, *, penalty=None,
+                                block_n: int = 2048, seg: int = 128,
+                                per_seg: int = 2):
+    """Plain twin of `fused_candidates_topk`."""
+    cand = seg_candidates_plain(queries, embs, penalty=penalty,
+                                block_n=block_n, seg=seg, per_seg=per_seg)
+    return _select_candidates(*cand, k, embs.shape[0])
+
+
+def fused_candidates_topk(queries, embs, k: int, *, penalty=None,
+                          block_n: int = 2048, tile_q: int = 64,
+                          seg: int = 128, per_seg: int = 2):
+    """Approximate dense top-k without the [Q, N] scores: the best
+    `per_seg` rows of every `seg`-row segment (`seg_candidates`, K5 on
+    CUDA), then an exact top-k over that strip. Returns ([Q, k] f32 scores,
+    [Q, k] int32 rows): the JAX `fused_candidates_topk` (minus `interpret`),
+    its order among equal scores included; rows past `penalty`'s end count
+    −5e29, slots past the strip or N are (−1e30, −1).
+
+    A row of the true top-k is lost only when more than `per_seg` of them
+    share its segment."""
+    cand = seg_candidates(queries, embs, penalty=penalty, block_n=block_n,
+                          tile_q=tile_q, seg=seg, per_seg=per_seg)
+    return _select_candidates(*cand, k, embs.shape[0])
 
 
 def streaming_topk_reference(scores, k: int, *, block_n: int = 1024,

@@ -591,3 +591,125 @@ def test_int8_store_on_the_card_matches_the_cpu(dev):
     # the postings engine adds in float64: the same bits on both devices
     np.testing.assert_array_equal(gsi, csi)
     np.testing.assert_array_equal(gss, css)
+
+
+# K5: the kernel sums each dot in d order, the twin in cuBLAS's, both in f32.
+# Strip and output scores agree within 1e-5 (relative past 1: a row under a
+# -1e4 penalty rounds to 2^-10); ids agree except where the twin's scores of
+# the two rows lie that close (near-ties).
+def assert_candidates_close(ks, ki, ps, pi, queries, embs, penalty):
+    assert ks.shape == ps.shape and ki.dtype == pi.dtype == torch.int32
+    tol = NEAR_TIE * ps.abs().clamp_min(1.0)
+    assert bool(((ks - ps).abs() <= tol).all())
+    valid = pi >= 0
+    assert torch.equal(ki >= 0, valid)
+    full = _full_scores(queries, embs, penalty)
+    got = torch.gather(full, 1, ki.clamp_min(0).long())
+    assert bool(((got - ps).abs() <= tol)[valid].all())
+    assert (ks[~valid] <= -5e29).all()
+
+
+@pytest.mark.parametrize("q,n,d,k,dtype,pen,block_n,seg,per_seg", [
+    (16, 10_000, 256, 20, torch.float32, None, 2048, 128, 2),  # hw_smoke
+    (3, 212, 16, 40, torch.float32, None, 2048, 128, 2),       # 4 valid ids
+    (1, 5000, 64, 40, torch.float32, "full", 1024, 64, 3),
+    (20, 3001, 72, 40, torch.bfloat16, "short", 2048, 128, 1),  # 64-q tiles
+    (70, 9000, 32, 50, torch.bfloat16, "full", 768, 96, 2),    # 384-row span
+    (5, 4000, 1024, 40, torch.bfloat16, "full", 512, 256, 4),
+    (2, 300, 8, 20, torch.float32, None, 256, 64, 1),          # k > strip
+    (64, 200_000, 1024, 40, torch.bfloat16, "full", 2048, 128, 2),
+])
+def test_fused_candidates_kernel_matches_plain(dev, q, n, d, k, dtype, pen,
+                                               block_n, seg, per_seg):
+    from rag_dpo_tpu_torch.ops.topk import (
+        fused_candidates_topk,
+        fused_candidates_topk_plain,
+        seg_candidates,
+        seg_candidates_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(q * n + seg)
+    queries, embs, penalty = _topk_case(gen, dev, q, n, d, dtype, pen)
+    kw = dict(penalty=penalty, block_n=block_n, seg=seg, per_seg=per_seg)
+    before = _kernels.LAUNCHES["fused_candidates"]
+    strip = seg_candidates(queries, embs, **kw)
+    out = fused_candidates_topk(queries, embs, k, **kw)
+    assert _kernels.LAUNCHES["fused_candidates"] == before + 2
+    plain_strip = seg_candidates_plain(queries, embs, **kw)
+    plain_out = fused_candidates_topk_plain(queries, embs, k, **kw)
+    torch.cuda.synchronize()
+    width = -(-n // block_n) * (block_n // seg) * per_seg
+    assert strip[0].shape == (q, width) and out[0].shape == (q, k)
+    assert_candidates_close(*strip, *plain_strip, queries, embs, penalty)
+    assert_candidates_close(*out, *plain_out, queries, embs, penalty)
+    if n == 212:
+        assert ((out[1] >= 0).sum(1) == 4).all()
+    # no atomics: the same inputs give the same bits
+    strip2 = seg_candidates(queries, embs, **kw)
+    out2 = fused_candidates_topk(queries, embs, k, **kw)
+    for a, b in zip(strip + out, strip2 + out2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,block_n,seg,per_seg", [
+    (20_000, 2048, 128, 2),
+    (300_000, 2048, 128, 2),    # a strip 4,704 wide
+    (300_000, 1024, 64, 1),     # 4,688 wide
+])
+def test_fused_candidates_kernel_keeps_the_tie_order(dev, n, block_n, seg,
+                                                     per_seg):
+    """Rows of eighths under a constant query: every sum is exact in any
+    order, the top 60 hold a few distinct scores, and the kernel's strip
+    and output equal the twin's bit for bit (first lane in a segment, the
+    lowest strip position in phase 2)."""
+    from rag_dpo_tpu_torch.ops.topk import (
+        fused_candidates_topk,
+        fused_candidates_topk_plain,
+        seg_candidates,
+        seg_candidates_plain,
+    )
+
+    rng = np.random.default_rng(n + seg)
+    rows = (rng.integers(-8, 9, (n, 16)) / 8).astype(np.float32)
+    for blk in (9, 3):  # equal best rows two to a segment
+        rows[blk * block_n + np.array([5, 6, 130, 131, 260, 261])] = 1.0
+    embs = torch.from_numpy(rows).to(dev)
+    queries = torch.full((3, 16), 0.5, device=dev)
+    queries[1] = -0.25
+    penalty = torch.zeros(n, device=dev)
+    penalty[::7] = -1e4
+    kw = dict(penalty=penalty, block_n=block_n, seg=seg, per_seg=per_seg)
+    for fn, plain in ((seg_candidates, seg_candidates_plain),
+                      (lambda *a, **k: fused_candidates_topk(*a, 60, **k),
+                       lambda *a, **k: fused_candidates_topk_plain(*a, 60,
+                                                                   **k))):
+        got, want = fn(queries, embs, **kw), plain(queries, embs, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_fused_candidates_kernel_rejects_what_it_does_not_take(dev):
+    from rag_dpo_tpu_torch.ops.topk import fused_candidates_topk
+
+    q = torch.zeros((2, 64), device=dev)
+    e = torch.zeros((300, 64), device=dev)
+    for bad_q, bad_e, kw in ((q, e, {"seg": 48, "block_n": 96}),   # seg % 32
+                             (q, e, {"seg": 64, "block_n": 1000}),  # divides
+                             (q, e, {"seg": 160, "block_n": 640}),  # span
+                             (q, e, {"per_seg": 0}),
+                             (q, e, {"seg": 32, "per_seg": 33,
+                                     "block_n": 256}),
+                             (q, e, {"tile_q": 0}),
+                             (q[:, :60], e[:, :60], {}),             # D % 8
+                             (torch.zeros((1, 1032), device=dev),
+                              torch.zeros((9, 1032), device=dev), {}),
+                             (q.bfloat16(), e, {}),                  # dtypes
+                             (q.double(), e.double(), {}),
+                             (q, e.T.contiguous().T, {}),            # strides
+                             (q.cpu(), e, {})):                      # devices
+        with pytest.raises(ValueError):
+            fused_candidates_topk(bad_q, bad_e, 10, **kw)
+    # the card keeps running after a refused shape: all-equal rows come in
+    # strip order (round 0 of segments 0, 1, 2, then round 1)
+    s, i = fused_candidates_topk(q, e, 5)
+    assert i[0].tolist() == [0, 128, 256, 1, 129] and (s == 0).all()

@@ -32,6 +32,7 @@ from rag_dpo_tpu_torch.ops.topk import (
     approx_topk,
     blocked_topk,
     cosine_topk_reference,
+    fused_candidates_topk,
     fused_topk,
     streaming_topk_reference,
 )
@@ -269,9 +270,10 @@ def test_wrappers_take_plain_twin_on_cpu_without_launching():
     pooled_group_max(torch.zeros((2, 16), dtype=torch.bfloat16),
                      torch.zeros((40, 16), dtype=torch.int8), torch.ones(40),
                      block_n=16, group=4)
+    fused_candidates_topk(torch.zeros((2, 8)), torch.zeros((300, 8)), 5)
     none = {name: 0 for name in ("flash_fwd", "ell_topk", "flash_bwd_dq",
                                  "flash_bwd_dkv", "maxsim", "fused_topk",
-                                 "pooled_max")}
+                                 "pooled_max", "fused_candidates")}
     assert _kernels.LAUNCHES == none
     assert _kernels.PLAIN_ON_CUDA == none
 

@@ -234,6 +234,15 @@ BLOCKED_RUN = textwrap.dedent("""
                                                            np.float32), 5)
     assert (rp[:, 0] >= 0).all(), rp
 
+    # the per-segment candidates op (K5's entry point, slice 5)
+    import torch
+    from rag_dpo_tpu_torch.ops import fused_candidates_topk
+
+    _, rc = fused_candidates_topk(torch.from_numpy(dense[:2]),
+                                  torch.from_numpy(dense), 5, block_n=128,
+                                  seg=32)
+    assert rc[:, 0].tolist() == [0, 1], rc
+
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                   "transformers", "rag_dpo_tpu")]
