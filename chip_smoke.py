@@ -19,11 +19,19 @@ Phases, in order; any failure exits non-zero before the result lines:
    through their own path, `ops.fused_candidates_topk` at
    bench_fused_cand.py's recipe over 1M bf16 rows at batches 1, 64 and
    256 (per_seg 2, and 1 at 64), held to the twin, to the same bits twice
-   and by recall@40 against K4 (≥ 0.99 at per_seg 2), then flash
-   attention's dq and
-   dk/dv kernels at the training shape and others; timed with CUDA events
-   and the profiler, beside each kernel's bound and, where one PyTorch
-   call computes the same function, that call's time;
+   and by recall@40 against K4 (≥ 0.99 at per_seg 2); K4 and K5 each get
+   one line a shape with their ratio to `torch.topk(addmm)` and their
+   share of the bound; then the shapes past the kernels' former limits
+   (ROADMAP C-17: K4 and K5 at Q 7 and 300, D 1000 and 1536, k 512 and
+   1024, bf16 and f32; K6 at D 1536; K3 with 100 query terms and at k
+   2048), each held
+   to its twin; then flash attention's dq and dk/dv kernels at the
+   training shape and others; timed with CUDA events and the profiler,
+   beside each kernel's bound and, where one PyTorch call computes the
+   same function, that call's time;
+3b. store limits — a 50,000-row index at dim 1536, bf16 and int8, through
+   `search_dense(k=512)` and `search_sparse` with 100 terms: K4 or K6 and
+   K3 must launch and no twin may run;
 4. scale — bench.py's 1M-chunk recipe made from `--seed` on the card:
    1,000,000 unit rows of 1024 dims, ELL width 24 over 50,000 terms,
    `IndexConfig(quantize_int8=True, postings_cap=256,
@@ -622,33 +630,64 @@ def fused_topk_bound(q: int, n: int, d: int, k: int, itemsize: int) -> dict:
             "f32_cores_bound_ms": bound(flops, nbytes)["bound_ms"]}
 
 
-def check_fused_topk(dev, gen) -> dict:
-    """K4 against its twin at the serve shape (4 query variants × the
-    16,919-chunk index's 17,408 padded rows, bf16, k 40) and over the 1M
-    rows at batches 1, 64 and 256."""
+def compare_fused_topk(q, e, pen, k, label) -> tuple:
+    """K4 against its twin: scores within NEAR_TIE, ids equal but where
+    the twin's score of the kernel's row lies that close to the slot's, the
+    same bits twice. Returns the max abs error and the near-tie ids."""
     import torch
 
     from rag_dpo_tpu_torch.ops.topk import fused_topk, fused_topk_plain
 
-    def compare(q, e, pen, k, label):
-        ks, ki = fused_topk(q, e, k, penalty=pen)
-        ps, pi = fused_topk_plain(q, e, k, penalty=pen)
-        torch.cuda.synchronize()
-        err = float((ks - ps).abs().max())
-        check(err <= NEAR_TIE, f"fused_topk {label}: scores differ by {err}")
-        differ = ki != pi
-        # each id the kernel returns carries the twin's score of its slot
-        got = torch.einsum("qd,qkd->qk", q.float(),
-                           e[ki.clamp_min(0).long()].float())
-        got = got + pen[ki.clamp_min(0).long()]
-        gap = float((got - ps)[differ].abs().max()) if differ.any() else 0.
-        check(gap <= NEAR_TIE, f"fused_topk {label}: an id differs outside "
-              f"a near-tie ({gap})")
-        ks2, ki2 = fused_topk(q, e, k, penalty=pen)
-        check(torch.equal(ks2, ks) and torch.equal(ki2, ki),
-              f"fused_topk {label}: two runs differ")
-        return err, int(differ.sum())
+    ks, ki = fused_topk(q, e, k, penalty=pen)
+    ps, pi = fused_topk_plain(q, e, k, penalty=pen)
+    torch.cuda.synchronize()
+    err = float((ks - ps).abs().max())
+    check(err <= NEAR_TIE, f"fused_topk {label}: scores differ by {err}")
+    differ = ki != pi
+    # each id the kernel returns carries the twin's score of its slot
+    got = torch.einsum("qd,qkd->qk", q.float(),
+                       e[ki.clamp_min(0).long()].float())
+    got = got + pen[ki.clamp_min(0).long()]
+    gap = float((got - ps)[differ].abs().max()) if differ.any() else 0.
+    check(gap <= NEAR_TIE, f"fused_topk {label}: an id differs outside "
+          f"a near-tie ({gap})")
+    ks2, ki2 = fused_topk(q, e, k, penalty=pen)
+    check(torch.equal(ks2, ks) and torch.equal(ki2, ki),
+          f"fused_topk {label}: two runs differ")
+    return err, int(differ.sum())
 
+
+def versus_library(name: str, label: str, ms: float, lib_ms: float,
+                   bnd: dict, plan: dict) -> dict:
+    """One line a (kernel, shape): its time, its ratio to the library
+    call, its share of the bound, and the launch plan it ran."""
+    ratio, share = ms / lib_ms, bnd["bound_ms"] / ms
+    log(f"{name} {label}: {ms:.4f} ms = {ratio:.2f}x torch.topk(addmm) "
+        f"({lib_ms:.4f} ms); bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}) = {share:.3f} of the kernel's time; "
+        f"{plan['route']} tile_q {plan['tile_q']} stages {plan['stages']} "
+        f"shared {plan['smem_bytes']} B")
+    return {"library_ratio": ratio, "bound_share": share,
+            "plan": {k: plan[k] for k in ("route", "tile_q", "stages",
+                                          "smem_bytes")}}
+
+
+def check_fused_topk(dev, gen) -> dict:
+    """K4 against its twin at the serve shape (4 query variants × the
+    16,919-chunk index's 17,408 padded rows, bf16, k 40) and over the 1M
+    rows at batches 1, 64 and 256; K5 at the serve shape beside it."""
+    import torch
+
+    from rag_dpo_tpu_torch.ops.topk import (
+        candidates_plan,
+        fused_topk,
+        fused_topk_plain,
+        seg_candidates,
+        seg_candidates_plain,
+        topk_plan,
+    )
+
+    compare = compare_fused_topk
     out = {}
     rows, pen = scale_rows(dev, gen, n=16_919)
     e = rows[:17_408].to(torch.bfloat16)
@@ -661,11 +700,27 @@ def check_fused_topk(dev, gen) -> dict:
     log(f"fused_topk [4x1024]x[17408x1024] bf16 k=40: max_abs_err={err:.3g}, "
         f"{ties} near-tie ids; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; "
         f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']})")
+    pen16 = pen.to(torch.bfloat16)[None, :]
+    lib_ms = cuda_ms(lambda: torch.topk(torch.addmm(pen16, q, e.T), 40))
+    vs = versus_library("K4", "serve [4]x[17408] bf16 k=40", ms, lib_ms, bnd,
+                        topk_plan(4, 17_408, 40, torch.bfloat16))
     out.update({"serve_max_abs_err": err, "serve_ms": ms,
-                "serve_plain_ms": plain_ms,
-                **{f"serve_{k}": v for k, v in bnd.items()},
+                "serve_plain_ms": plain_ms, "serve_library_ms": lib_ms,
+                **{f"serve_{k}": v for k, v in {**bnd, **vs}.items()},
                 "serve_device_ms": device_ms(
                     lambda: fused_topk(q, e, 40, penalty=pen), launches=2)})
+    # K5 at the same shape (its recipe, per_seg 2): the strip to its twin
+    kw = dict(penalty=pen, per_seg=2, **CAND_RECIPE)
+    strip = seg_candidates(q, e, **kw)
+    err5, _ = candidates_gap(q, e, pen, strip,
+                             seg_candidates_plain(q, e, **kw), "serve strip")
+    ms5 = cuda_ms(lambda: seg_candidates(q, e, **kw))
+    bnd5 = fused_topk_bound(4, 17_408, SCALE_DIM, strip[0].shape[1], 2)
+    vs5 = versus_library(
+        "K5", "serve [4]x[17408] bf16 per_seg 2", ms5, lib_ms, bnd5,
+        candidates_plan(4, 17_408, torch.bfloat16, **CAND_RECIPE))
+    out["k5_serve"] = {"ms": ms5, "max_abs_err": err5, "library_ms": lib_ms,
+                       **bnd5, **vs5}
     del rows, e
     rows, pen = scale_rows(dev, gen)
     e = rows.to(torch.bfloat16)
@@ -690,8 +745,11 @@ def check_fused_topk(dev, gen) -> dict:
             f"addmm) {lib_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
             f"({bnd['bound_by']}), on the f32 cores "
             f"{bnd['f32_cores_bound_ms']:.4f} ms")
+        vs = versus_library("K4", f"1M Q={nq} bf16 k=40", ms, lib_ms, bnd,
+                            topk_plan(nq, e.shape[0], 40, torch.bfloat16))
         out[f"q{nq}"] = {"ms": ms, "device_ms": dms, "plain_ms": plain_ms,
-                         "library_ms": lib_ms, "near_tie_ids": ties, **bnd}
+                         "library_ms": lib_ms, "near_tie_ids": ties, **bnd,
+                         **vs}
     main = out.pop(f"q{SCALE_BATCHES[-1]}")
     return {"max_abs_err": worst, **main,
             "library_calls": "torch.topk(torch.addmm(pen, q, e.T), k): a "
@@ -740,6 +798,7 @@ def check_fused_candidates(dev, seed: int) -> dict:
     from rag_dpo_tpu_torch import ops
     from rag_dpo_tpu_torch.ops import _kernels
     from rag_dpo_tpu_torch.ops.topk import (
+        candidates_plan,
         fused_candidates_topk_plain,
         fused_topk,
         seg_candidates,
@@ -820,12 +879,15 @@ def check_fused_candidates(dev, seed: int) -> dict:
             f"{lib_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
             f"({bnd['bound_by']}), on the f32 cores "
             f"{bnd['f32_cores_bound_ms']:.4f} ms")
+        vs = versus_library(
+            "K5", f"1M Q={nq} bf16 per_seg {per_seg}", ms, lib_ms, bnd,
+            candidates_plan(nq, n, torch.bfloat16, **CAND_RECIPE))
         key = f"q{nq}" + ("" if per_seg == 2 else f"_per_seg{per_seg}")
         out[key] = {"ms": ms, "device_ms": dms, "entry_ms": entry_ms,
                     "plain_ms": plain_ms, "k4_ms": k4_ms,
                     "library_ms": lib_ms, f"recall_at_{CAND_K}": recall,
                     "near_tie_ids": ties_s + ties_t,
-                    "strip_width": strip[0].shape[1], **bnd}
+                    "strip_width": strip[0].shape[1], **bnd, **vs}
     main = out.pop(f"q{SCALE_BATCHES[-1]}")
     return {"max_abs_err": worst, **main,
             "library_calls": "torch.topk(torch.addmm(pen, q, e.T), k): the "
@@ -901,6 +963,213 @@ def check_pooled(dev, gen) -> dict:
     return {"max_abs_err": worst, **main, "library_ms": None,
             "shape": f"[{SCALE_BATCHES[-1]}x1024] bf16 x [{n}x1024] int8, "
                      "block 8192, group 64", **out}
+
+
+# ROADMAP C-17 and C-19: shapes past the kernels' former limits, each
+# held to its twin (unit queries, as the store sends them): K4 (Q, D, k,
+# dtype), K5 (Q, D, dtype; top-512 of its strip), K6 at D 1536, K3 with
+# 100 query terms and at k 2048
+LIMIT_ROWS = 50_000
+LIMIT_K4 = ((7, 1000, 40, "bfloat16"), (300, 1536, 40, "bfloat16"),
+            (64, 1024, 512, "bfloat16"), (16, 1024, 1024, "bfloat16"),
+            (7, 1000, 512, "float32"), (300, 1536, 1024, "float32"))
+LIMIT_K5 = ((7, 1000, "bfloat16"), (300, 1536, "bfloat16"),
+            (7, 1536, "float32"))
+
+
+def check_former_limits(dev, gen) -> dict:
+    """The kernels at the shapes ROADMAP C-17 lists (see LIMIT_*); every
+    case launches its kernel once more and matches its twin."""
+    import torch
+
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.ops.pooled import (
+        pooled_group_max,
+        pooled_group_max_plain,
+    )
+    from rag_dpo_tpu_torch.ops.quantize import quantize_rows
+    from rag_dpo_tpu_torch.ops.sparse import ell_topk, ell_topk_plain
+    from rag_dpo_tpu_torch.ops.topk import (
+        fused_candidates_topk,
+        fused_candidates_topk_plain,
+        seg_candidates,
+        seg_candidates_plain,
+    )
+
+    def rows(d):
+        x = torch.randn((LIMIT_ROWS, d), generator=gen, device=dev)
+        return x / x.norm(dim=1, keepdim=True)
+
+    def queries(q, d):
+        x = torch.randn((q, d), generator=gen, device=dev)
+        return x / x.norm(dim=1, keepdim=True)
+
+    pen = torch.zeros(LIMIT_ROWS, device=dev)
+    pen[torch.rand(LIMIT_ROWS, generator=gen, device=dev) < 0.1] = -1e4
+    out = {"cases": 0}
+
+    def launched(name, before):
+        check(_kernels.LAUNCHES[name] > before,
+              f"{name} did not launch at a former limit")
+        out["cases"] += 1
+
+    for q, d, k, dtype in LIMIT_K4:
+        dt = getattr(torch, dtype)
+        e, qq = rows(d).to(dt), queries(q, d).to(dt)
+        before = _kernels.LAUNCHES["fused_topk"]
+        err, ties = compare_fused_topk(qq, e, pen, k,
+                                       f"Q={q} D={d} k={k} {dtype}")
+        launched("fused_topk", before)
+        log(f"former limit K4 [{q}x{d}]x[{LIMIT_ROWS}x{d}] {dtype} k={k}: "
+            f"max_abs_err={err:.3g}, {ties} near-tie ids")
+    for q, d, dtype in LIMIT_K5:
+        dt = getattr(torch, dtype)
+        e, qq = rows(d).to(dt), queries(q, d).to(dt)
+        kw = dict(penalty=pen, per_seg=2, **CAND_RECIPE)
+        before = _kernels.LAUNCHES["fused_candidates"]
+        err_s, _ = candidates_gap(qq, e, pen, seg_candidates(qq, e, **kw),
+                                  seg_candidates_plain(qq, e, **kw),
+                                  f"Q={q} D={d} {dtype} strip")
+        err_t, _ = candidates_gap(
+            qq, e, pen, fused_candidates_topk(qq, e, 512, **kw),
+            fused_candidates_topk_plain(qq, e, 512, **kw),
+            f"Q={q} D={d} {dtype} top-512")
+        launched("fused_candidates", before)
+        log(f"former limit K5 [{q}x{d}]x[{LIMIT_ROWS}x{d}] {dtype}: "
+            f"max_abs_err strip {err_s:.3g}, top-512 {err_t:.3g}")
+    e_i8, e_scale = quantize_rows(rows(1536))
+    qq = queries(4, 1536).to(torch.bfloat16)
+    before = _kernels.LAUNCHES["pooled_max"]
+    kv, ki = pooled_group_max(qq, e_i8, e_scale, pen)
+    pv, pi = pooled_group_max_plain(qq, e_i8, e_scale, pen)
+    torch.cuda.synchronize()
+    ulp = torch.ldexp(torch.ones_like(pv.float()),
+                      torch.frexp(pv.float()).exponent - 8)
+    check(bool(((kv.float() - pv.float()).abs() <= ulp).all()),
+          "pooled D=1536: a value differs by more than one bf16 ulp")
+    sc = (qq.float() @ e_i8.float().T) * e_scale + pen
+    nb = -(-LIMIT_ROWS // 8192)
+    full = torch.full((4, nb * 8192), -1e30, device=dev)
+    full[:, :LIMIT_ROWS] = sc
+    top2 = full.reshape(4, nb, 64, 128).topk(2, dim=2).values
+    near = (top2[:, :, 0] - top2[:, :, 1] <= NEAR_TIE).reshape(4, -1)
+    check(not bool(((ki != pi) & ~near).any()),
+          "pooled D=1536: an id differs outside a near-tie")
+    differ = int((ki != pi).sum())
+    launched("pooled_max", before)
+    log(f"former limit K6 [4x1536] bf16 x [{LIMIT_ROWS}x1536] int8: values "
+        f"within a bf16 ulp, {differ} ids differ (near-ties)")
+    # 24 distinct terms a row (197·j mod 2000), a tenth of the slots empty
+    base = torch.randint(0, 2000, (LIMIT_ROWS, 1), generator=gen, device=dev)
+    terms = (base + 197 * torch.arange(24, device=dev)) % 2000
+    empty = torch.rand((LIMIT_ROWS, 24), generator=gen, device=dev) < 0.1
+    terms = torch.where(empty, -1, terms).to(torch.int32)
+    imps = torch.rand((LIMIT_ROWS, 24), generator=gen, device=dev)
+    qt = torch.randperm(2000, generator=gen, device=dev)[:100]
+    qt = qt.to(torch.int32)[None, :]
+    qw = torch.rand((1, 100), generator=gen, device=dev) + 0.2
+    before = _kernels.LAUNCHES["ell_topk"]
+    ks, ki = ell_topk(terms, imps, qt, qw, k=40)
+    ps, pi = ell_topk_plain(terms, imps, qt, qw, 40)
+    torch.cuda.synchronize()
+    check(torch.equal(ki, pi) and torch.equal(ks, ps),
+          "ell_topk T=100: ids or scores differ")
+    launched("ell_topk", before)
+    log(f"former limit K3 [{LIMIT_ROWS}x24] Q=1 T=100 k=40: ids and scores "
+        f"exact")
+    before = _kernels.LAUNCHES["ell_topk"]
+    ks, ki = ell_topk(terms, imps, qt[:, :16], qw[:, :16], k=2048)
+    ps, pi = ell_topk_plain(terms, imps, qt[:, :16], qw[:, :16], 2048)
+    torch.cuda.synchronize()
+    check(torch.equal(ki, pi) and torch.equal(ks, ps),
+          "ell_topk k=2048: ids or scores differ")
+    launched("ell_topk", before)
+    log(f"former limit K3 [{LIMIT_ROWS}x24] Q=1 T=16 k=2048: ids and scores "
+        f"exact")
+    return out
+
+
+def run_store_limits(seed: int, dev) -> dict:
+    """A 50,000-row index at dim 1536, bf16 and int8, through the store's
+    entry points: `search_dense(k=512)` and `search_sparse` with 100 terms.
+    The launch counters must rise and no twin may run; the bf16 top-512
+    holds the exact f32 top-512 of the device image (recall ≥ 0.99) and
+    the sparse top-40 is K3's twin's, exactly."""
+    import numpy as np
+    import torch
+
+    from rag_dpo_tpu_torch.index import DeviceIndex, IndexConfig
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.ops.sparse import ell_topk_plain
+    from rag_dpo_tpu_torch.ops.topk import fused_topk_plain
+
+    rng = np.random.default_rng(seed + 17)
+    n, dim = LIMIT_ROWS, 1536
+    dense = rng.standard_normal((n, dim)).astype(np.float32)
+    dense /= np.linalg.norm(dense, axis=1, keepdims=True)
+    # 24 distinct terms a row
+    terms = ((rng.integers(0, 5000, (n, 1)) + 197 * np.arange(24)) % 5000
+             ).astype(np.int32)
+    imps = np.abs(rng.standard_normal((n, 24))).astype(np.float32)
+    q = rng.standard_normal((4, dim)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qt = rng.choice(5000, (1, 100), replace=False).astype(np.int32)
+    qw = rng.uniform(0.2, 3.0, (1, 100)).astype(np.float32)
+    ids = [f"s{i}" for i in range(n)]
+    out = {}
+    for int8 in (False, True):
+        idx = DeviceIndex(IndexConfig(dim=dim, ell_width=24,
+                                      quantize_int8=int8), device=dev)
+        idx.add(ids, dense, terms=terms, impacts=imps)
+        image = idx.device_image()
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        s, i = idx.search_dense(q, 512)
+        ss, si = idx.search_sparse(qt, qw, 40)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        dense_kernel = "pooled_max" if int8 else "fused_topk"
+        check(launches[dense_kernel] > 0 and launches["ell_topk"] > 0,
+              f"store dim {dim} int8={int8}: launches {launches}")
+        check(not any(_kernels.PLAIN_ON_CUDA.values()),
+              f"store dim {dim} int8={int8}: a twin ran "
+              f"{_kernels.PLAIN_ON_CUDA}")
+        check(s.shape == (4, 512) and np.isfinite(s[i >= 0]).all()
+              and (i < n).all(), f"store dim {dim}: bad dense result")
+        qd = torch.from_numpy(qt).to(dev)
+        ws, wi = ell_topk_plain(image["terms"], image["impacts"], qd,
+                                torch.from_numpy(qw).to(dev), 40)
+        check(np.array_equal(si, wi.cpu().numpy())
+              and np.array_equal(ss, ws.cpu().numpy()),
+              f"store dim {dim}: sparse top-40 is not K3's twin's")
+        if int8:
+            recall = None  # approximate by design (C-14): recorded below
+            valid = int((i >= 0).sum())
+        else:
+            qb = torch.from_numpy(q).to(dev).to(torch.bfloat16)
+            qb = torch.nn.functional.pad(qb, (0, image["embs"].shape[1]
+                                              - dim))
+            _, want = fused_topk_plain(qb, image["embs"], 512,
+                                       penalty=image["alive_penalty"])
+            want = want.cpu().numpy()
+            recall = float(np.mean([len(set(a) & set(b)) / 512
+                                    for a, b in zip(i, want)]))
+            check(recall >= 0.99, f"store dim {dim}: recall@512 {recall}")
+            valid = int((i >= 0).sum())
+        log(f"store dim {dim} {'int8' if int8 else 'bf16'}: search_dense("
+            f"k=512) + search_sparse(100 terms) {wall * 1e3:.1f} ms, "
+            f"launches {launches[dense_kernel]} {dense_kernel}, "
+            f"{launches['ell_topk']} ell_topk, no twin; {valid} valid ids, "
+            f"recall@512 vs the exact top-512 "
+            f"{'n/a (int8)' if recall is None else f'{recall:.5f}'}; sparse "
+            f"top-40 = K3's twin")
+        out["int8" if int8 else "bf16"] = {
+            "launches": {dense_kernel: launches[dense_kernel],
+                         "ell_topk": launches["ell_topk"]},
+            "recall_at_512": recall, "valid_ids": valid}
+        del idx, image
+    return out
 
 
 def run_scale(seed: int, dev) -> dict:
@@ -1458,6 +1727,38 @@ def run_train(seed: int, dev) -> dict:
             "train_device_busy_share": busy}
 
 
+def kernel_name(mangled: str) -> str:
+    """`ns::name<N>` of a kernel in an anonymous namespace, from its
+    mangled name (the mangled name where it is not one)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    i = m.end() + int(m.group(1))
+    m = re.match(r"(\d+)", mangled[i:])
+    if not m:
+        return mangled
+    j = i + m.end()
+    name = mangled[j:j + int(m.group(1))]
+    t = re.match(r"ILi(\d+)E", mangled[j + int(m.group(1)):])
+    return name + (f"<{t.group(1)}>" if t else "")
+
+
+def ptxas_report(text: str) -> list:
+    """(kernel, its registers / spill / static shared memory) of a build's
+    `-Xptxas -v` output; dynamic shared memory is the launch plan's."""
+    out, kernel, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = kernel_name(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and kernel:
+            out.append((kernel, line.split("info    :")[-1].strip()
+                        + f"; {spill}"))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1493,9 +1794,8 @@ def main() -> int:
                      _kernels.BUILD_SECONDS.items())
            or "not run (libraries already built)"))
     for name, text in _kernels.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for kernel, report in ptxas_report(text):
+            log(f"  ptxas {name} {kernel}: {report}")
 
     dataset, chunks = build_corpus(args.seed, N_CHUNKS, N_DOCS)
     colbert_len, lengths = colbert_bucket(chunks)
@@ -1518,9 +1818,13 @@ def main() -> int:
     k6 = check_pooled(dev, gen)
     gc.collect()
     torch.cuda.empty_cache()
+    limits = check_former_limits(dev, gen)
     # before the serve phases: after them, the profiler lost the backward
     # kernels' events (device time not measured)
     flash_bwd = check_flash_bwd(dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_limits = run_store_limits(args.seed, dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1613,6 +1917,8 @@ def main() -> int:
                        if k.startswith("query_")},
                     **{f"scale_{k}": v for k, v in scale.items()
                        if k not in ("launches", "plain_on_cuda")},
+                    "former_limit_cases": limits["cases"],
+                    "store_limits": store_limits,
                     "hermetic_trained": hermetic["none"]["gated"],
                     "hermetic_trained_maxsim": hermetic["maxsim"]["gated"],
                     **{k: v for k, v in train.items()

@@ -24,7 +24,7 @@
 // cells in registers: no score ever reaches memory. Each layer is a SIMT
 // product of the query tile with 128 rows, D in 64-wide slices staged
 // through shared memory as f32, the next slice loaded into registers while
-// the current one is multiplied.
+// the current one is multiplied; the slices loop over any D % 16 == 0.
 //
 // What bounds it on an H100: the products, 2·Q·N·D flops on the CUDA cores
 // in f32 (67 TFLOP/s), against N·D int8 bytes read once (3.35 TB/s): the
@@ -248,13 +248,13 @@ extern "C" {
 // q [Q, D] bf16, e [N, D] int8, scale [N] f32, penalty [P] f32 or null, all
 // contiguous and 16-byte aligned; out_v [Q, nb·ng] bf16 and out_i [Q, nb·ng]
 // int32 with nb = ceil(N / block_n), ng = block_n / group. Needs
-// 16 <= D <= 1024 with D % 16 == 0 and block_n % group == 0. Returns a
-// cudaError_t.
+// D % 16 == 0 (any D: the slices loop over it) and block_n % group == 0.
+// Returns a cudaError_t.
 int pooled_max(const void* q, const int8_t* e, const float* scale,
                const float* penalty, int P, int Q, int N, int D, int block_n,
                int group, void* out_v, int* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Q <= 0 || N <= 0 || D < 16 || D > 1024 || D % 16 != 0 || group <= 0 ||
+  if (Q <= 0 || N <= 0 || D < 16 || D % 16 != 0 || group <= 0 ||
       block_n <= 0 || block_n % group != 0 || (penalty != nullptr && P < 0))
     return cudaErrorInvalidValue;
   if (Q <= 16)

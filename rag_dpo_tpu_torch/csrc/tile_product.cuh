@@ -1,18 +1,20 @@
-// The SIMT product of a query tile with a 128-row tile of embeddings, shared
-// by the dense selectors csrc/fused_topk.cu (K4) and csrc/seg_candidates.cu
-// (K5).
+// The SIMT f32 product of a query tile with a 128-row tile of embeddings,
+// shared by the dense selectors csrc/fused_topk.cu (K4) and
+// csrc/seg_candidates.cu (K5) for f32 inputs: the scale phase's exact
+// oracle and any store kept in f32. TF32 tensor cores would keep about three
+// decimal digits, which ROADMAP C-5 gives up nowhere; bf16 inputs take the
+// tensor-core product of csrc/tma_product.cuh instead.
 //
 // 256 threads; thread (tx = tid & 15, ty = tid >> 4) holds the sums of
 // queries q0 + ty*MQ + i (i < MQ) with rows base + tile_col(tx, j) (j < 8).
 // D goes in 32-wide slices staged through shared memory as f32, the next
-// slice loaded into registers while the current one is multiplied. Inputs are
-// f32 or bf16 (widened exactly to f32); each sum starts at +0 and adds its
-// products in d order with f32 fused multiply-adds, so no sum is -0. Rows past
-// N and queries past Q read as zeros.
+// slice loaded into registers while the current one is multiplied. Each sum
+// starts at +0 and adds its products in d order with f32 fused
+// multiply-adds, so no sum is -0. Rows past N and queries past Q read as
+// zeros; D needs no upper limit (any multiple of 8).
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,7 +38,7 @@ __device__ __forceinline__ int tile_col(int tx, int j) {
   return (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
 }
 
-// 8 consecutive elements, loaded with 16-byte loads and widened to f32
+// 8 consecutive f32 elements, two 16-byte loads
 __device__ __forceinline__ void load8(const float* p, bool ok, float* out) {
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
   if (ok) {
@@ -45,18 +47,6 @@ __device__ __forceinline__ void load8(const float* p, bool ok, float* out) {
   }
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, bool ok,
-                                      float* out) {
-  uint4 u = make_uint4(0u, 0u, 0u, 0u);
-  if (ok) u = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 is the high half of an f32
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 
 // The next D slice of the row tile and the query tile, into registers:

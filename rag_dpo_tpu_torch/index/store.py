@@ -7,7 +7,11 @@ format (`arrays.npz`, `manifest.json`, `metadata.json`, `bm25.json`) are
 the JAX package's, so a checkpoint saved by either package loads in the
 other. The device image is
 the same padded layout: rows rounded up to `row_block`, padding rows with
-zero vectors, −1 terms and a −1e4 penalty.
+zero vectors, −1 terms and a −1e4 penalty. Its dense columns are padded
+with zeros to what the card's kernels read in one load (a multiple of 8
+for bf16 and f32 rows, of 16 for int8 ones, after quantizing, so the
+per-row scales do not move), and the queries with them: a zero column adds
++0 to every score, so any `dim` runs without a copy per search.
 
 Search engines:
 * dense, bf16: exact top-k with the lowest row first among ties
@@ -39,11 +43,12 @@ import numpy as np
 import torch
 
 from ..ops import approx_topk, blocked_topk, default_device
+from ..ops import pooled, topk
 from ..ops.pooled import pooled_group_max
 from ..ops.postings import PostingsIndex, postings_candidates_topk
 from ..ops.quantize import quantize_rows
 from ..ops.sparse import ell_scores, ell_topk
-from ..ops.topk import _sort_desc
+from ..ops.topk import _sort_desc, pad_columns
 from .metadata import MetadataStore, compile_filter
 
 NEG_INF = -1e30
@@ -254,9 +259,11 @@ class DeviceIndex:
         embs_d, embs_i8, embs_scale = put(embs), None, None
         if cfg.quantize_int8:  # the bf16 image is not kept, as in JAX
             embs_i8, embs_scale = quantize_rows(embs_d)
+            embs_i8 = pad_columns(embs_i8, self._col_multiple())
             embs_d = None
         else:
-            embs_d = embs_d.to(cfg.device_dtype)
+            embs_d = pad_columns(embs_d.to(cfg.device_dtype),
+                                 self._col_multiple())
         self._device = {
             "embs": embs_d,
             "embs_i8": embs_i8,
@@ -297,9 +304,18 @@ class DeviceIndex:
         s = np.where(i >= 0, s, NEG_INF).astype(np.float32)
         return s, i
 
-    def _queries(self, queries):
+    def _col_multiple(self) -> int:
+        """The column multiple of the device image: the D that the kernel
+        reading it (K6 for int8, K4 otherwise) loads whole."""
+        return (pooled.COL_MULTIPLE if self.config.quantize_int8
+                else topk.COL_MULTIPLE)
+
+    def _queries(self, queries, dtype=None):
+        """Queries on the device in `dtype` (default the image's), padded
+        with the image's zero columns."""
         q = torch.from_numpy(np.asarray(queries, np.float32))
-        return q.to(self.device).to(self.config.device_dtype)
+        q = q.to(self.device).to(dtype or self.config.device_dtype)
+        return pad_columns(q, self._col_multiple())
 
     def search_dense(self, queries: np.ndarray, k: int, where=None,
                      exact: bool = False):
@@ -334,7 +350,7 @@ class DeviceIndex:
         (K6) keeps the max of every strided group of 64 rows; the best
         min(4k, groups) groups are re-scored exactly on the host."""
         qf32 = np.asarray(queries, np.float32)
-        q = torch.from_numpy(qf32).to(self.device).to(torch.bfloat16)
+        q = self._queries(qf32, torch.bfloat16)
         penalty = self._combined_penalty(mask, dev)
         pv, pi = pooled_group_max(q, dev["embs_i8"], dev["embs_scale"],
                                   penalty)

@@ -64,16 +64,15 @@ SIGNATURES = {
     "flash_bwd_dkv": [_I, *[_P] * 9, _I, _I, _I, _I, _F, _P],
     # dtype, qv, q_mask, dv, d_mask, Q, LQ, C, LD, D, partial, out, stream
     "maxsim": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    # dtype, q, e, penalty, P, Q, N, D, k, rows_per_block, cand_s, cand_i,
-    # out_s, out_i, stream
-    "fused_topk": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                   _P],
+    # dtype, q, e, penalty, P, Q, N, D, k, rows_per_block, tile_q, stages,
+    # lists_in_smem, merge_in_smem, cand_s, cand_i, out_s, out_i, stream
+    "fused_topk": [_I, _P, _P, _P, *[_I] * 10, _P, _P, _P, _P, _P],
     # q, e_i8, scale, penalty, P, Q, N, D, block_n, group, out_v, out_i,
     # stream
     "pooled_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # dtype, q, e, penalty, P, Q, N, D, block_n, seg, per_seg, tile_q,
-    # out_s, out_i, stream
-    "fused_candidates": [_I, _P, _P, _P, *[_I] * 8, _P, _P, _P],
+    # stages, n_blocks, out_s, out_i, stream
+    "fused_candidates": [_I, _P, _P, _P, *[_I] * 10, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -21,8 +21,9 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
-from .topk import NEG_INF, _sort_desc
+from .topk import NEG_INF, _sort_desc, pad_columns
 
+COL_MULTIPLE = 16  # the D K6 loads whole: 16 bytes of int8
 
 def _check_blocks(block_n: int, group: int) -> None:
     if group < 1 or block_n < 1 or block_n % group:
@@ -65,8 +66,11 @@ def pooled_group_max_plain(queries_bf16, e_i8, e_scale, penalty=None, *,
             ids.reshape(q, nb * ng))
 
 
-def _pooled_max_kernel(queries_bf16, e_i8, e_scale, penalty, block_n: int,
-                       group: int):
+def _pooled_inputs(queries_bf16, e_i8, e_scale, penalty, block_n: int,
+                   group: int):
+    """What K6 refuses (ValueError), or its inputs as it takes them:
+    D padded with zero columns to `COL_MULTIPLE`, contiguous and 16-byte
+    aligned, the scales and penalty as contiguous f32."""
     _check_blocks(block_n, group)
     if queries_bf16.dim() != 2 or e_i8.dim() != 2:
         raise ValueError("pooled_group_max takes queries [Q, D] and e_i8 "
@@ -74,12 +78,9 @@ def _pooled_max_kernel(queries_bf16, e_i8, e_scale, penalty, block_n: int,
     (q, d), (n, dd) = queries_bf16.shape, e_i8.shape
     if dd != d:
         raise ValueError(f"queries have D={d}, e_i8 D={dd}")
-    if not (16 <= d <= 1024 and d % 16 == 0):
-        raise ValueError(f"the CUDA pooled kernel takes D a multiple of 16 "
-                         f"from 16 to 1024, got {d}")
-    if q < 1 or n < 1:
+    if q < 1 or n < 1 or d < 1:
         raise ValueError(f"pooled_group_max takes no empty axis, got Q={q} "
-                         f"N={n}")
+                         f"N={n} D={d}")
     if queries_bf16.dtype != torch.bfloat16 or e_i8.dtype != torch.int8:
         raise ValueError(f"the CUDA pooled kernel takes bf16 queries and "
                          f"int8 rows, got {queries_bf16.dtype} and "
@@ -91,14 +92,27 @@ def _pooled_max_kernel(queries_bf16, e_i8, e_scale, penalty, block_n: int,
                     ("penalty", penalty)):
         if x is not None and x.device != dev:
             raise ValueError(f"{name} is on {x.device}, e_i8 on {dev}")
-    for name, x in (("queries", queries_bf16), ("e_i8", e_i8)):
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    # zero columns add +0 to every sum; a copy on the card, as fused_topk
+    # pads
+    queries_bf16, e_i8 = (pad_columns(x, COL_MULTIPLE)
+                          for x in (queries_bf16, e_i8))
+    queries_bf16, e_i8 = (
+        x if x.is_contiguous() and x.data_ptr() % 16 == 0
+        else x.clone(memory_format=torch.contiguous_format)
+        for x in (queries_bf16, e_i8))
     scale = e_scale.float().contiguous()
     if penalty is not None:
         if penalty.dim() != 1:
             raise ValueError("penalty must be [N]")
         penalty = penalty.float().contiguous()
+    return queries_bf16, e_i8, scale, penalty
+
+
+def _pooled_max_kernel(queries_bf16, e_i8, e_scale, penalty, block_n: int,
+                       group: int):
+    queries_bf16, e_i8, scale, penalty = _pooled_inputs(
+        queries_bf16, e_i8, e_scale, penalty, block_n, group)
+    (q, d), n, dev = queries_bf16.shape, e_i8.shape[0], e_i8.device
     n_pool = -(-n // block_n) * (block_n // group)
     out_v = torch.empty((q, n_pool), dtype=torch.bfloat16, device=dev)
     out_i = torch.empty((q, n_pool), dtype=torch.int32, device=dev)
@@ -120,8 +134,9 @@ def pooled_group_max(queries_bf16, e_i8, e_scale, penalty=None, *,
     """[Q, D] bf16 × int8 [N, D] → pooled ([Q, N/group] bf16 maxima,
     [Q, N/group] int32 first-argmax rows), N rounded up to `block_n`.
 
-    On CUDA: bf16 queries, int8 rows, contiguous, D a multiple of 16 up to
-    1024; anything else raises."""
+    On CUDA: bf16 queries and int8 rows, any D (one that is not a multiple
+    of 16 is padded with zero columns, a copy on the card that changes no
+    score; the store pads its image once instead); other dtypes raise."""
     if e_i8.is_cuda:
         return _pooled_max_kernel(queries_bf16, e_i8, e_scale, penalty,
                                   block_n, group)

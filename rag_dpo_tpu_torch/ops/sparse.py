@@ -71,16 +71,21 @@ def ell_topk_plain(doc_terms, doc_impacts, q_terms, q_weights, k: int,
     return streaming_topk_reference(s, min(k, n), block_n=block_n, n_valid=n)
 
 
-def _ell_topk_kernel(doc_terms, doc_impacts, q_terms, q_weights, k: int,
-                     block_n: int):
+def _ell_inputs(doc_terms, doc_impacts, q_terms, q_weights, k: int,
+                block_n: int) -> list:
+    """What the ELL kernel refuses (ValueError), or its four inputs as it
+    takes them (int32 / f32, contiguous). Any number of query terms runs
+    (the kernel matches them 64 at a time, its sum still in t order), and
+    any k up to N: blocks keep min(k, 1024) rows each and pass 2 merges
+    them with the running top-k of K4."""
     n, l = doc_terms.shape
     q, t = q_terms.shape
     if block_n != 1024:
         raise ValueError("the CUDA ELL kernel streams 1024-row blocks")
-    if not 1 <= k <= block_n:
-        raise ValueError(f"the CUDA ELL kernel takes 1 ≤ k ≤ {block_n}")
-    if not 1 <= t <= 64:
-        raise ValueError("the CUDA ELL kernel takes 1 to 64 query terms")
+    if not 1 <= k <= n:
+        raise ValueError(f"the CUDA ELL kernel takes 1 ≤ k ≤ N, got {k}")
+    if t < 1:
+        raise ValueError("the CUDA ELL kernel takes at least one query term")
     if doc_impacts.shape != (n, l) or q_weights.shape != (q, t):
         raise ValueError("impacts must match terms, and weights q_terms, "
                          "in shape")
@@ -91,9 +96,18 @@ def _ell_topk_kernel(doc_terms, doc_impacts, q_terms, q_weights, k: int,
         if x.device != dev:
             raise ValueError("ELL inputs must share one device")
         args.append(x.to(dtype).contiguous())
-    nb = -(-n // block_n)
-    cand_s = torch.empty((q, nb, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((q, nb, k), dtype=torch.int32, device=dev)
+    return args
+
+
+def _ell_topk_kernel(doc_terms, doc_impacts, q_terms, q_weights, k: int,
+                     block_n: int):
+    args = _ell_inputs(doc_terms, doc_impacts, q_terms, q_weights, k,
+                       block_n)
+    (n, l), (q, t) = doc_terms.shape, q_terms.shape
+    dev = doc_terms.device
+    nb, kb = -(-n // block_n), min(k, block_n)
+    cand_s = torch.empty((q, nb, kb), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((q, nb, kb), dtype=torch.int32, device=dev)
     out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     lib = _kernels.load("ell_topk")

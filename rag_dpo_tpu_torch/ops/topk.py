@@ -2,7 +2,8 @@
 
 * `fused_topk` — the port of the JAX package's Pallas `fused_topk` (K4):
   exact top-k of `q·eᵀ (+ penalty)` without writing the [Q, N] scores. On
-  CUDA tensors it launches the hand-written kernel in `csrc/fused_topk.cu`,
+  CUDA tensors it launches the hand-written kernel in `csrc/fused_topk.cu`
+  (bf16 inputs: a TMA-fed wgmma product; f32 inputs: a SIMT FMA chain),
   on CPU tensors it runs `fused_topk_plain` (a matmul, the penalty and a
   stable sort). Equal scores keep the lowest row first (ROADMAP C-13).
 * `fused_candidates_topk` — the port of the JAX package's Pallas
@@ -22,6 +23,13 @@
 `approx_topk` and `blocked_topk` compute one function, exact top-k with
 the lowest row first among ties: on CUDA tensors both go through K4 and
 return what their CPU code returns, fill slots included.
+
+`topk_plan` and `candidates_plan` are the kernels' launch plans as pure
+functions of the shapes (query tile, ring depth, shared-memory bytes, where
+the running lists live, the grid), so the CPU tests can hold every shape a
+caller may send to the card's limits. Their byte counts mirror the kernels'
+layout; the `cuda` tests hold them to the libraries' own
+(`fused_topk_smem`, `fused_topk_merge_smem`, `fused_candidates_smem`).
 
 Every plain selection is a stable descending sort: `lax.top_k` puts the
 lower index first among equal scores, and `torch.topk` promises no order.
@@ -43,9 +51,114 @@ from . import _kernels
 
 NEG_INF = -1e30
 _FUSED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_FUSED_MAX_K = 256          # csrc/fused_topk.cu: kMaxK
 _FUSED_TILE_N = 128         # rows per tile; a block's rows are a multiple
+COL_MULTIPLE = 8            # the D K4 and K5 load whole: 16 bytes of bf16
 _SEG_MAX_SPAN = 512         # csrc/seg_candidates.cu: kMaxSpan
+SMEM_MAX = 232_448          # shared memory a block may use on an H100
+H100_SMS = 132
+TC_TILES = (8, 16, 32, 64, 128)   # the wgmma N the bf16 kernels are built for
+_RING_MIN, _RING_MAX = 3, 8       # depth of the bf16 kernels' TMA ring
+_E_SLOT = 128 * 64 * 2            # a ring slot's rows: 128 × 64 bf16
+_WARPS = 8                        # the warps that select (pending buffers)
+
+
+def _ring_bytes(tile_q: int, stages: int) -> int:
+    """csrc/tma_product.cuh::ring_bytes: the 1024-byte alignment slack and
+    `stages` slots of (128 rows, tile_q queries) × 64 bf16 with two
+    mbarriers each."""
+    return 1024 + stages * (_E_SLOT + tile_q * 64 * 2 + 16)
+
+
+def _lists_bytes(tq: int, k: int, in_smem: bool) -> int:
+    """csrc/fused_topk.cu::lists_bytes: pending buffers, per-query count,
+    k-th key and flag, and the [tq, k] running lists when shared."""
+    return 8 * _WARPS * _FUSED_TILE_N + 16 * tq + (8 * tq * k if in_smem
+                                                    else 0)
+
+
+def _simt_product_bytes(tq: int) -> int:
+    """csrc/tile_product.cuh::product_smem_floats, in bytes."""
+    return 4 * (32 * (tq + 4) + 32 * (_FUSED_TILE_N + 4))
+
+
+def _pow2_tile(q: int) -> int:
+    return min(TC_TILES[-1], max(TC_TILES[0], 1 << (q - 1).bit_length()))
+
+
+def _stages(fixed: int, tile_q: int) -> int:
+    slot = _E_SLOT + tile_q * 64 * 2 + 16
+    return min(_RING_MAX, (SMEM_MAX - 1024 - fixed) // slot)
+
+
+def topk_plan(q: int, n: int, k: int, dtype, sms: int = H100_SMS) -> dict:
+    """K4's launch for Q queries, N rows and k ≤ N.
+
+    bf16 (wgmma): the query tile is Q rounded up to a power of two in
+    8 … 128, halved while the running lists of its queries do not fit
+    beside a ring of three slots; at 8 the lists go to the candidate
+    scratch instead. The ring takes what shared memory is left (3 … 8
+    slots). One block per SM: the query tiles of a row chunk are
+    neighbours in the grid (they read its rows from L2 together) and the
+    chunks fill one wave. f32 (SIMT): 16 or 64 queries, about four blocks
+    per SM. Pass 2 keeps its eight lists in shared memory when they fit."""
+    if dtype == torch.bfloat16:
+        route, tile_q = "wgmma", _pow2_tile(q)
+        while True:
+            fixed = 4 * tile_q * (_FUSED_TILE_N + 4)
+            lists_in_smem = (_ring_bytes(tile_q, _RING_MIN) + fixed
+                             + _lists_bytes(tile_q, k, True)) <= SMEM_MAX
+            if lists_in_smem or tile_q == TC_TILES[0]:
+                break
+            tile_q //= 2
+        fixed += _lists_bytes(tile_q, k, lists_in_smem)
+        stages = _stages(fixed, tile_q)
+        smem = _ring_bytes(tile_q, stages) + fixed
+        q_tiles = -(-q // tile_q)
+        chunks = max(1, sms // q_tiles)
+    else:
+        route, tile_q, stages = "simt", 16 if q <= 16 else 64, 0
+        fixed = _simt_product_bytes(tile_q) + 4 * tile_q * (_FUSED_TILE_N
+                                                            + 1)
+        lists_in_smem = fixed + _lists_bytes(tile_q, k, True) <= SMEM_MAX
+        smem = fixed + _lists_bytes(tile_q, k, lists_in_smem)
+        q_tiles = -(-q // tile_q)
+        chunks = max(1, -(-4 * sms // q_tiles))
+    rows = max(_FUSED_TILE_N, -(-n // chunks))
+    rows = -(-rows // _FUSED_TILE_N) * _FUSED_TILE_N
+    merge_in_smem = 8 * _WARPS * (_FUSED_TILE_N + k) <= SMEM_MAX
+    return {"route": route, "tile_q": tile_q, "stages": stages,
+            "smem_bytes": smem, "lists_in_smem": lists_in_smem,
+            "rows_per_block": rows, "n_chunks": -(-n // rows),
+            "q_tiles": q_tiles, "merge_in_smem": merge_in_smem,
+            "merge_smem_bytes": 8 * _WARPS * (_FUSED_TILE_N
+                                              + (k if merge_in_smem else 0))}
+
+
+def candidates_plan(q: int, n: int, dtype, *, block_n: int, seg: int,
+                    tile_q: int = 64, sms: int = H100_SMS) -> dict:
+    """K5's launch. bf16 (wgmma): the query tile is Q rounded up to a
+    power of two in 8 … 128 (halved while a [tile, span] score tile and a
+    three-slot ring do not fit), the ring takes the rest; one block per SM,
+    walking spans. f32 (SIMT): `tile_q` rounded to 16 or 64 queries."""
+    span = math.lcm(seg, _FUSED_TILE_N)
+    n_spans = -(-(-(-n // block_n) * block_n) // span)
+    if dtype == torch.bfloat16:
+        route, tq = "wgmma", _pow2_tile(q)
+        while (tq > TC_TILES[0] and _ring_bytes(tq, _RING_MIN)
+               + 4 * tq * (span + 4) > SMEM_MAX):
+            tq //= 2
+        fixed = 4 * tq * (span + 4)
+        stages = _stages(fixed, tq)
+        smem = _ring_bytes(tq, stages) + fixed
+        n_blocks = min(n_spans, max(1, sms // -(-q // tq)))
+    else:
+        route, stages = "simt", 0
+        tq = 16 if min(q, tile_q) <= 16 else 64
+        smem = _simt_product_bytes(tq) + 4 * tq * (span + 1)
+        n_blocks = min(n_spans, 65_535)
+    return {"route": route, "tile_q": tq, "stages": stages,
+            "smem_bytes": smem, "span": span, "n_spans": n_spans,
+            "n_blocks": n_blocks, "q_tiles": -(-q // tq)}
 
 
 def _sort_desc(x):
@@ -91,19 +204,20 @@ def fused_topk_plain(queries, embs, k: int, *, penalty=None):
     return vals, idxs
 
 
-def _check_dense(what: str, queries, embs, penalty):
-    """What the dense kernels (K4, K5) take, or ValueError; returns the
-    penalty as contiguous f32 (or None)."""
+def _dense_inputs(what: str, queries, embs, penalty):
+    """What the dense kernels (K4, K5) refuse, as JAX does: other than 2-D,
+    mismatched D, an empty axis, dtypes other than one of f32 / bf16 for
+    both, or tensors on two devices (ValueError). Returns the inputs as the
+    kernels take them: D padded with zero columns to `COL_MULTIPLE` (a
+    copy; a zero column adds +0 to every sum), each contiguous and 16-byte
+    aligned (a copy where it is not), the penalty as contiguous f32."""
     if queries.dim() != 2 or embs.dim() != 2:
         raise ValueError(f"{what} takes queries [Q, D] and embs [N, D]")
     (q, d), (n, dd) = queries.shape, embs.shape
     if dd != d:
         raise ValueError(f"queries have D={d}, embs D={dd}")
-    if not (8 <= d <= 1024 and d % 8 == 0):
-        raise ValueError(f"the CUDA {what} kernel takes D a multiple of 8 "
-                         f"from 8 to 1024, got {d}")
-    if q < 1 or n < 1:
-        raise ValueError(f"{what} takes no empty axis, got Q={q} N={n}")
+    if q < 1 or n < 1 or d < 1:
+        raise ValueError(f"{what} takes no empty axis, got Q={q} N={n} D={d}")
     if embs.dtype not in _FUSED_DTYPES or queries.dtype != embs.dtype:
         raise ValueError(f"the CUDA {what} kernel takes f32 or bf16 queries "
                          f"and embs of one dtype, got {queries.dtype} and "
@@ -112,43 +226,56 @@ def _check_dense(what: str, queries, embs, penalty):
     for name, x in (("queries", queries), ("penalty", penalty)):
         if x is not None and x.device != dev:
             raise ValueError(f"{name} is on {x.device}, embs on {dev}")
-    for name, x in (("queries", queries), ("embs", embs)):
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if penalty is None:
-        return None
-    if penalty.dim() != 1:
+    if penalty is not None and penalty.dim() != 1:
         raise ValueError("penalty must be [N]")
-    return penalty.float().contiguous()
+    queries, embs = (pad_columns(x, COL_MULTIPLE) for x in (queries, embs))
+    queries, embs = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
+                     else x.clone(memory_format=torch.contiguous_format)
+                     for x in (queries, embs))
+    return (queries, embs,
+            None if penalty is None else penalty.float().contiguous())
+
+
+def pad_columns(x, multiple: int):
+    """`x` [R, D] with zero columns up to a multiple of `multiple` (a copy),
+    or `x` itself when D is one already."""
+    extra = -x.shape[1] % multiple
+    return torch.nn.functional.pad(x, (0, extra)) if extra else x
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _fused_topk_kernel(queries, embs, k: int, penalty):
-    penalty = _check_dense("fused_topk", queries, embs, penalty)
-    if not 1 <= k <= _FUSED_MAX_K:
-        raise ValueError(f"the CUDA fused_topk kernel takes 1 ≤ k ≤ "
-                         f"{_FUSED_MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"fused_topk takes k ≥ 1, got {k}")
+    queries, embs, penalty = _dense_inputs("fused_topk", queries, embs,
+                                           penalty)
     (q, d), n, dev = queries.shape, embs.shape[0], embs.device
-    # blocks of whole 128-row tiles, about four per SM over all query tiles
-    tq = 16 if q <= 16 else 64
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunks = max(1, -(-4 * sms // -(-q // tq)))
-    rows = max(_FUSED_TILE_N, -(-n // chunks))
-    rows = -(-rows // _FUSED_TILE_N) * _FUSED_TILE_N
-    n_chunks = -(-n // rows)
-    cand_s = torch.empty((q, n_chunks, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((q, n_chunks, k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+    kk = min(k, n)
+    plan = topk_plan(q, n, kk, embs.dtype, _sms(dev))
+    cand_s = torch.empty((q, plan["n_chunks"], kk), dtype=torch.float32,
+                         device=dev)
+    cand_i = torch.empty((q, plan["n_chunks"], kk), dtype=torch.int32,
+                         device=dev)
+    out_s = torch.empty((q, kk), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, kk), dtype=torch.int32, device=dev)
     lib = _kernels.load("fused_topk")
     with torch.cuda.device(dev):
         err = lib.fused_topk(
             _FUSED_DTYPES[embs.dtype], _kernels.ptr(queries),
             _kernels.ptr(embs), _kernels.ptr(penalty),
-            0 if penalty is None else penalty.shape[0], q, n, d, k, rows,
+            0 if penalty is None else penalty.shape[0], q, n, d, kk,
+            plan["rows_per_block"], plan["tile_q"], plan["stages"],
+            int(plan["lists_in_smem"]), int(plan["merge_in_smem"]),
             _kernels.ptr(cand_s), _kernels.ptr(cand_i), _kernels.ptr(out_s),
             _kernels.ptr(out_i), _kernels.stream_of(embs))
     _kernels.check(lib, err, "fused_topk")
     _kernels.LAUNCHES["fused_topk"] += 1
+    if kk < k:
+        out_s = torch.nn.functional.pad(out_s, (0, k - kk), value=NEG_INF)
+        out_i = torch.nn.functional.pad(out_i, (0, k - kk), value=-1)
     return out_s, out_i
 
 
@@ -157,8 +284,11 @@ def fused_topk(queries, embs, k: int, *, penalty=None):
     [Q, k] int32 rows), the lowest row first among equal scores; rows past
     `penalty`'s end count −5e29 and slots past N are (−1e30, −1).
 
-    On CUDA: queries and embs both f32 or both bf16, contiguous, D a
-    multiple of 8 up to 1024, 1 ≤ k ≤ 256; anything else raises."""
+    On CUDA: queries and embs both f32 or both bf16, any k ≥ 1 and any D.
+    A D that is not a multiple of 8 is padded with zero columns (a copy of
+    both on the card, which changes no score; the store pads its image
+    once instead), as is an input that is not contiguous and 16-byte
+    aligned. Other inputs raise (`_dense_inputs`)."""
     if embs.is_cuda:
         return _fused_topk_kernel(queries, embs, k, penalty)
     return fused_topk_plain(queries, embs, k, penalty=penalty)
@@ -258,7 +388,8 @@ def seg_candidates_plain(queries, embs, *, penalty=None, block_n: int = 2048,
 
 def _seg_candidates_kernel(queries, embs, penalty, block_n, tile_q, seg,
                            per_seg):
-    penalty = _check_dense("fused_candidates", queries, embs, penalty)
+    queries, embs, penalty = _dense_inputs("fused_candidates", queries, embs,
+                                           penalty)
     if not (seg > 0 and seg % 32 == 0 and block_n > 0 and block_n % seg == 0
             and math.lcm(seg, _FUSED_TILE_N) <= _SEG_MAX_SPAN):
         raise ValueError(f"the CUDA fused_candidates kernel takes seg a "
@@ -270,7 +401,8 @@ def _seg_candidates_kernel(queries, embs, penalty, block_n, tile_q, seg,
     if tile_q < 1:
         raise ValueError(f"tile_q must be positive, got {tile_q}")
     (q, d), n, dev = queries.shape, embs.shape[0], embs.device
-    tq = 16 if min(q, tile_q) <= 16 else 64
+    plan = candidates_plan(q, n, embs.dtype, block_n=block_n, seg=seg,
+                           tile_q=tile_q, sms=_sms(dev))
     width = -(-n // block_n) * (block_n // seg) * per_seg
     out_s = torch.empty((q, width), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, width), dtype=torch.int32, device=dev)
@@ -280,7 +412,8 @@ def _seg_candidates_kernel(queries, embs, penalty, block_n, tile_q, seg,
             _FUSED_DTYPES[embs.dtype], _kernels.ptr(queries),
             _kernels.ptr(embs), _kernels.ptr(penalty),
             0 if penalty is None else penalty.shape[0], q, n, d, block_n,
-            seg, per_seg, tq, _kernels.ptr(out_s), _kernels.ptr(out_i),
+            seg, per_seg, plan["tile_q"], plan["stages"], plan["n_blocks"],
+            _kernels.ptr(out_s), _kernels.ptr(out_i),
             _kernels.stream_of(embs))
     _kernels.check(lib, err, "fused_candidates")
     _kernels.LAUNCHES["fused_candidates"] += 1
@@ -290,11 +423,12 @@ def _seg_candidates_kernel(queries, embs, penalty, block_n, tile_q, seg,
 def seg_candidates(queries, embs, *, penalty=None, block_n: int = 2048,
                    tile_q: int = 64, seg: int = 128, per_seg: int = 2):
     """Phase 1 of `fused_candidates_topk`: the candidate strip of
-    `seg_candidates_plain`. On CUDA it launches K5 (`csrc/seg_candidates.cu`,
-    `tile_q` rounded to its 16- or 64-query tiles): queries and embs both
-    f32 or both bf16, contiguous, D a multiple of 8 up to 1024, seg a
-    multiple of 32 dividing block_n with lcm(seg, 128) ≤ 512, 1 ≤ per_seg ≤
-    seg; anything else raises."""
+    `seg_candidates_plain`. On CUDA it launches K5 (`csrc/seg_candidates.cu`;
+    f32 takes `tile_q` rounded to 16- or 64-query tiles, bf16 the tile of
+    `candidates_plan`): queries and embs both f32 or both bf16, any D (one
+    that is not a multiple of 8 is padded with zero columns, a copy on the
+    card, as `fused_topk` does), seg a multiple of 32 dividing block_n with
+    lcm(seg, 128) ≤ 512, 1 ≤ per_seg ≤ seg; anything else raises."""
     if embs.is_cuda:
         return _seg_candidates_kernel(queries, embs, penalty, block_n, tile_q,
                                       seg, per_seg)

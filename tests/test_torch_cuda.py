@@ -216,6 +216,10 @@ def _ell_case(rng, n, l, q, t, vocab):
     (2048, 32, 4, 32, 5000, 40),  # the sparse arm's widths
     (30, 4, 2, 3, 10, 10),        # one partial block
     (5000, 16, 1, 1, 100, 1024),  # k = block
+    (3000, 24, 1, 100, 400, 40),  # 100 terms: two chunks of the t loop
+    (2048, 32, 1, 128, 5000, 40),  # the most the store sends to ELL
+    (5000, 16, 2, 8, 100, 2048),  # k > 1024: every row of a block kept
+    (99_000, 8, 1, 8, 2000, 1024),  # 97 blocks × 1024 candidates to merge
 ])
 def test_ell_kernel_matches_plain_ids_exact(dev, n, l, q, t, vocab, k):
     rng = np.random.default_rng(n + k)
@@ -393,15 +397,43 @@ def _full_scores(queries, embs, penalty):
     (1, 5000, 64, 40, torch.float32, None),
     (20, 3001, 72, 160, torch.bfloat16, "short"),    # 64-query tiles
     (3, 30, 16, 40, torch.float32, None),            # k > N
-    (70, 1000, 8, 256, torch.float32, "full"),       # the largest k
+    (70, 1000, 8, 256, torch.float32, "full"),
     (1, 200_000, 1024, 40, torch.bfloat16, "full"),
 ])
 def test_fused_topk_kernel_matches_plain(dev, q, n, d, k, dtype, pen):
-    from rag_dpo_tpu_torch.ops.topk import fused_topk, fused_topk_plain
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(q * n + k)
-    queries, embs, penalty = _topk_case(gen, dev, q, n, d, dtype, pen)
+    _check_fused_topk(*_topk_case(gen, dev, q, n, d, dtype, pen), k)
+
+
+# ROADMAP C-17: shapes past the former limits (Q 7 and 300, D 1000 padded and
+# 1536, k 512, 1024 and 4096 with the lists in the candidate scratch), with
+# unit queries as the store sends them, so 1e-5 stays an absolute bound on
+# scores of at most 1 at any D.
+@pytest.mark.parametrize("q,n,d,k,dtype,pen", [
+    (7, 20_000, 1000, 40, torch.bfloat16, "full"),
+    (300, 30_000, 1536, 40, torch.bfloat16, "short"),
+    (5, 40_000, 1024, 512, torch.bfloat16, "full"),
+    (64, 50_000, 256, 1024, torch.bfloat16, None),
+    (2, 9000, 128, 4096, torch.bfloat16, None),
+    (129, 3000, 8, 40, torch.bfloat16, None),
+    (7, 20_000, 1000, 512, torch.float32, "full"),
+    (3, 8000, 1536, 1024, torch.float32, None),
+    (300, 5000, 64, 40, torch.float32, "full"),
+])
+def test_fused_topk_kernel_past_former_limits(dev, q, n, d, k, dtype, pen):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(q * n + k)
+    queries, embs, penalty = _topk_case(gen, dev, q, n, d, torch.float32,
+                                        pen)
+    queries = queries / queries.norm(dim=1, keepdim=True)
+    _check_fused_topk(queries.to(dtype), embs.to(dtype), penalty, k)
+
+
+def _check_fused_topk(queries, embs, penalty, k):
+    from rag_dpo_tpu_torch.ops.topk import fused_topk, fused_topk_plain
+
+    (q, _), n = queries.shape, embs.shape[0]
     before = _kernels.LAUNCHES["fused_topk"]
     ks, ki = fused_topk(queries, embs, k, penalty=penalty)
     assert _kernels.LAUNCHES["fused_topk"] == before + 1
@@ -418,10 +450,40 @@ def test_fused_topk_kernel_matches_plain(dev, q, n, d, k, dtype, pen):
     assert (ki[~valid] == -1).all() and (ks[~valid] == -1e30).all()
     if k <= n:
         assert ki[0, :6].tolist() == [7, n // 2, n // 2 + 1, n // 2 + 2,
-                                      n // 2 + 3, n // 2 + 4] or pen
+                                      n // 2 + 3, n // 2 + 4] \
+            or penalty is not None
     # no atomics: the same inputs give the same bits
     ks2, ki2 = fused_topk(queries, embs, k, penalty=penalty)
     assert torch.equal(ks2, ks) and torch.equal(ki2, ki)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launch_plans_match_the_kernels_shared_memory(dev, dtype):
+    """topk_plan and candidates_plan size shared memory on the CPU; the
+    kernels lay it out themselves. Over the grid of the CPU plan tests
+    (tests/test_torch_limits.py) both give the same bytes."""
+    import ctypes
+
+    from rag_dpo_tpu_torch.ops.topk import candidates_plan, topk_plan
+
+    k4 = _kernels.load("fused_topk")
+    k5 = _kernels.load("fused_candidates")
+    for fn, n_args in ((k4.fused_topk_smem, 5), (k4.fused_topk_merge_smem, 2),
+                       (k5.fused_candidates_smem, 4)):
+        fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * n_args
+    code = 1 if dtype == torch.bfloat16 else 0
+    for q in (1, 7, 9, 64, 300, 1024):
+        for k in (1, 40, 512, 4096):
+            p = topk_plan(q, max(k, 50_000), k, dtype)
+            assert p["smem_bytes"] == k4.fused_topk_smem(
+                code, p["tile_q"], p["stages"], k, int(p["lists_in_smem"]))
+            assert p["merge_smem_bytes"] == k4.fused_topk_merge_smem(
+                k, int(p["merge_in_smem"]))
+        for seg, block_n in ((32, 2048), (128, 2048), (384, 768),
+                             (512, 8192)):
+            p = candidates_plan(q, 1_000_448, dtype, block_n=block_n, seg=seg)
+            assert p["smem_bytes"] == k5.fused_candidates_smem(
+                code, p["tile_q"], p["stages"], p["span"])
 
 
 def test_dense_selectors_on_the_card_match_the_cpu(dev):
@@ -445,24 +507,36 @@ def test_dense_selectors_on_the_card_match_the_cpu(dev):
 
 
 def test_fused_topk_kernel_rejects_what_it_does_not_take(dev):
-    from rag_dpo_tpu_torch.ops.topk import fused_topk
+    """Only what JAX refuses too: a mismatched D, an empty axis, mixed or
+    other dtypes; k and D past the former limits, strides and D % 8 now run."""
+    from rag_dpo_tpu_torch.ops.topk import fused_topk, fused_topk_plain
 
     q = torch.zeros((2, 64), device=dev)
     e = torch.zeros((100, 64), device=dev)
-    for bad_q, bad_e, k in ((q, e, 257),                        # k
-                            (q, e, 0),
-                            (q[:, :60], e[:, :60], 10),         # D % 8
-                            (torch.zeros((1, 1032), device=dev),
-                             torch.zeros((9, 1032), device=dev), 4),  # D
-                            (q.bfloat16(), e, 10),              # dtypes
+    for bad_q, bad_e, k in ((q, e, 0),                           # k
+                            (q[:, :60], e, 10),                  # D differs
+                            (q[:0], e, 10),                      # empty
+                            (q.bfloat16(), e, 10),               # dtypes
                             (q.double(), e.double(), 10),
-                            (q, e.T.contiguous().T, 10),         # strides
                             (q.cpu(), e, 10)):                   # devices
         with pytest.raises(ValueError):
             fused_topk(bad_q, bad_e, k)
     # the card keeps running after a refused shape
     s, i = fused_topk(q, e, 4)
     assert i[0].tolist() == [0, 1, 2, 3] and (s == 0).all()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    qr = torch.randn((3, 1032), generator=gen, device=dev)
+    er = torch.randn((500, 1032), generator=gen, device=dev)
+    qr, er = (x / x.norm(dim=1, keepdim=True) for x in (qr, er))
+    for qq, ee, k in ((qr[:, :60], er[:, :60], 10),        # D % 8
+                      (qr, er, 257),                        # k past 256
+                      (qr, er.T.contiguous().T, 10)):       # strides
+        ks, ki = fused_topk(qq, ee, k)
+        ps, _ = fused_topk_plain(qq, ee, k)
+        got = torch.gather(qq @ ee.T, 1, ki.long())   # ids carry their scores
+        assert float((ks - ps).abs().max()) <= 1e-4
+        assert float((got - ps).abs().max()) <= 1e-4
 
 
 def _pooled_case(gen, dev, q, n, d, pen):
@@ -514,6 +588,8 @@ def assert_pooled_close(kv, ki, pv, pi, queries, e_i8, e_scale, penalty,
     (3, 700, 32, 256, 2, "full"),
     (2, 1000, 16, 96, 4, None),             # 24 groups a block
     (256, 100_000, 1024, 8192, 64, "full"),
+    (4, 20_000, 1536, 8192, 64, "full"),    # past the former D limit (C-17)
+    (3, 5000, 1000, 1024, 8, None),          # D padded to 1008
 ])
 def test_pooled_kernel_matches_plain(dev, q, n, d, block_n, group, pen):
     from rag_dpo_tpu_torch.ops.pooled import (
@@ -542,7 +618,6 @@ def test_pooled_kernel_rejects_what_it_does_not_take(dev):
     sc = torch.ones(100, device=dev)
     for args, kw in (((q.float(), e, sc), {}),                 # bf16 queries
                      ((q, e.float(), sc), {}),                 # int8 rows
-                     ((q[:, :56], e[:, :56], sc), {}),         # D % 16
                      ((q, e, sc[:50]), {}),                    # scale shape
                      ((q, e, sc), {"block_n": 100, "group": 64}),
                      ((q.cpu(), e, sc), {})):
@@ -621,6 +696,34 @@ def assert_candidates_close(ks, ki, ps, pi, queries, embs, penalty):
 ])
 def test_fused_candidates_kernel_matches_plain(dev, q, n, d, k, dtype, pen,
                                                block_n, seg, per_seg):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(q * n + seg)
+    _check_fused_candidates(*_topk_case(gen, dev, q, n, d, dtype, pen), k,
+                            block_n, seg, per_seg)
+
+
+# ROADMAP C-17 for K5: Q 7, 130 and 300, D 1000 (padded) and 1536, unit
+# queries as in the K4 test above
+@pytest.mark.parametrize("q,n,d,k,dtype,pen,block_n,seg,per_seg", [
+    (7, 20_000, 1000, 40, torch.bfloat16, "full", 2048, 128, 2),
+    (300, 30_000, 1536, 512, torch.bfloat16, "short", 2048, 128, 2),
+    (130, 9000, 64, 40, torch.bfloat16, None, 768, 384, 2),
+    (3, 8000, 1536, 1024, torch.float32, None, 1024, 512, 3),
+])
+def test_fused_candidates_kernel_past_former_limits(dev, q, n, d, k, dtype,
+                                                    pen, block_n, seg,
+                                                    per_seg):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(q * n + seg)
+    queries, embs, penalty = _topk_case(gen, dev, q, n, d, torch.float32,
+                                        pen)
+    queries = queries / queries.norm(dim=1, keepdim=True)
+    _check_fused_candidates(queries.to(dtype), embs.to(dtype), penalty, k,
+                            block_n, seg, per_seg)
+
+
+def _check_fused_candidates(queries, embs, penalty, k, block_n, seg,
+                            per_seg):
     from rag_dpo_tpu_torch.ops.topk import (
         fused_candidates_topk,
         fused_candidates_topk_plain,
@@ -628,9 +731,7 @@ def test_fused_candidates_kernel_matches_plain(dev, q, n, d, k, dtype, pen,
         seg_candidates_plain,
     )
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(q * n + seg)
-    queries, embs, penalty = _topk_case(gen, dev, q, n, d, dtype, pen)
+    (q, _), n = queries.shape, embs.shape[0]
     kw = dict(penalty=penalty, block_n=block_n, seg=seg, per_seg=per_seg)
     before = _kernels.LAUNCHES["fused_candidates"]
     strip = seg_candidates(queries, embs, **kw)
@@ -700,12 +801,9 @@ def test_fused_candidates_kernel_rejects_what_it_does_not_take(dev):
                              (q, e, {"seg": 32, "per_seg": 33,
                                      "block_n": 256}),
                              (q, e, {"tile_q": 0}),
-                             (q[:, :60], e[:, :60], {}),             # D % 8
-                             (torch.zeros((1, 1032), device=dev),
-                              torch.zeros((9, 1032), device=dev), {}),
+                             (q[:, :60], e, {}),                     # D
                              (q.bfloat16(), e, {}),                  # dtypes
                              (q.double(), e.double(), {}),
-                             (q, e.T.contiguous().T, {}),            # strides
                              (q.cpu(), e, {})):                      # devices
         with pytest.raises(ValueError):
             fused_candidates_topk(bad_q, bad_e, 10, **kw)
@@ -713,3 +811,56 @@ def test_fused_candidates_kernel_rejects_what_it_does_not_take(dev):
     # strip order (round 0 of segments 0, 1, 2, then round 1)
     s, i = fused_candidates_topk(q, e, 5)
     assert i[0].tolist() == [0, 128, 256, 1, 129] and (s == 0).all()
+
+
+@pytest.mark.parametrize("dim,int8", [(1536, False), (1000, False),
+                                      (1536, True)])
+def test_store_past_former_limits_on_the_card_matches_the_cpu(dev, dim,
+                                                              int8):
+    """ROADMAP C-17 at the store: dim 1536 and 1000 (zero columns padded
+    into the image), search_dense at k 512 and search_sparse with 100
+    terms go through K4 or K6 and K3 on the card, no twin, and agree with
+    the CPU store (bf16: scores within 1e-5 and ids but near-ties; int8:
+    recall, as in the int8 test above; ELL: ids and scores exact)."""
+    from rag_dpo_tpu_torch.index import DeviceIndex, IndexConfig
+
+    rng = np.random.default_rng(dim)
+    n = 20_000
+    dense = rng.standard_normal((n, dim)).astype(np.float32)
+    dense /= np.linalg.norm(dense, axis=1, keepdims=True)
+    terms = rng.integers(0, 300, (n, 8)).astype(np.int32)
+    imps = np.abs(rng.standard_normal((n, 8))).astype(np.float32)
+    ids = [f"r{i}" for i in range(n)]
+    q = rng.standard_normal((3, dim)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qt = rng.choice(300, (1, 100), replace=False).astype(np.int32)
+    qw = rng.uniform(0.2, 3.0, (1, 100)).astype(np.float32)
+    out = {}
+    for device in ("cpu", dev):
+        idx = DeviceIndex(IndexConfig(dim=dim, ell_width=8,
+                                      quantize_int8=int8), device=device)
+        idx.add(ids, dense, terms=terms, impacts=imps)
+        before = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_ON_CUDA)
+        out[str(device)] = (idx.search_dense(q, 512),
+                            idx.search_sparse(qt, qw, 40))
+    dense_kernel = "pooled_max" if int8 else "fused_topk"
+    assert _kernels.LAUNCHES[dense_kernel] == before[0][dense_kernel] + 1
+    assert _kernels.LAUNCHES["ell_topk"] == before[0]["ell_topk"] + 1
+    assert _kernels.PLAIN_ON_CUDA == before[1]
+    (cs, ci), (css, csi) = out["cpu"]
+    (gs, gi), (gss, gsi) = out[str(dev)]
+    np.testing.assert_array_equal(gsi, csi)
+    np.testing.assert_array_equal(gss, css)
+    if int8:
+        # the sweep keeps one row of each of 384 groups: fewer candidates
+        # than k, and both devices return the same valid ones
+        recall = np.mean([len(set(a) & set(b) - {-1}) / len(set(b) - {-1})
+                          for a, b in zip(gi, ci)])
+        assert recall >= 0.99
+        np.testing.assert_array_equal((gi >= 0).sum(1), (ci >= 0).sum(1))
+        return
+    assert np.abs(gs - cs).max() <= NEAR_TIE
+    differ = gi != ci
+    near = np.abs(np.diff(cs, axis=1)) <= NEAR_TIE
+    near = np.pad(near, ((0, 0), (0, 1))) | np.pad(near, ((0, 0), (1, 0)))
+    assert not (differ & ~near).any()
