@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    printed);
 3. kernels — each kernel against its plain PyTorch twin on the same CUDA
    tensors, at the shapes the query path gives it (the flash forward at
-   the training shape too; ELL at the hermetic replay's width 48 too;
+   the training shape too, f32 and bf16, the same bits twice, and at head
+   widths 8 ... 320 and S of 1, 63, 65 and 513; ELL at the hermetic
+   replay's width 48 too;
    MaxSim at the rerank's full width and the replay's; the fused dense
    top-k at the serve shape and over 1M rows, the pooled int8 sweep over
    1M rows, at batches 1, 64 and 256), the per-segment candidates (K5)
@@ -24,11 +26,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    share of the bound; then the shapes past the kernels' former limits
    (ROADMAP C-17: K4 and K5 at Q 7 and 300, D 1000 and 1536, k 512 and
    1024, bf16 and f32; K6 at D 1536; K3 with 100 query terms and at k
-   2048), each held
+   2048; C-19: K5 at seg 8, 80, 1000 and 1024), each held
    to its twin; then flash attention's dq and dk/dv kernels at the
-   training shape and others; timed with CUDA events and the profiler,
-   beside each kernel's bound and, where one PyTorch call computes the
-   same function, that call's time;
+   training shape and others (Dh 80 and 320 too); timed with CUDA events
+   and the profiler, beside each kernel's bound and, where one PyTorch
+   call computes the same function, that call's time and device time;
 3b. store limits — a 50,000-row index at dim 1536, bf16 and int8, through
    `search_dense(k=512)` and `search_sparse` with 100 terms: K4 or K6 and
    K3 must launch and no twin may run;
@@ -50,7 +52,9 @@ Phases, in order; any failure exits non-zero before the result lines:
 6. serve — `build_stack` reloads the checkpoint and answers 8 questions of
    the QA dataset through `pipeline.query` with a full-width cross-encoder
    reranking 40 candidates to 10; the kernels' launch counters must rise
-   and no plain twin may run on the card;
+   and no plain twin may run on the card; the flash forward and SDPA are
+   then timed at the attention shapes these queries called most (the
+   query encode at batch 1, the cross-encoder's batch);
 7. serve, MaxSim — `create_pipeline(use_maxsim=True)` over the same loaded
    index answers 8 questions, reranking 40 candidates to 10 by MaxSim over
    the stored ColBERT rows; K7 must launch and no twin may run;
@@ -79,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import pathlib
@@ -92,10 +97,15 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 QA_DATASET = ROOT / "rag_dpo_tpu" / "evals" / "data" / "qa_dataset.json"
 N_CHUNKS, N_DOCS, N_QUESTIONS = 16_919, 1_829, 8
-# f32 flash: the kernel streams 64-key blocks with an online softmax and
-# sums in another order than the twin's single block; both keep f32
-# accumulators, so they agree far inside 1e-4. bf16 rounds the output.
-FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# f32 flash forward: the kernel streams key tiles with an online softmax,
+# its products on the tensor cores as 3xTF32 (~2^-21 a product), and sums
+# in another order than the twin's single block: they agree within 1e-5 on
+# unit Gaussian inputs, where one TF32 product (~1e-3) would not. bf16
+# rounds the output.
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the backward kernels, f32 on the CUDA cores in 64-row tiles against the
+# twins' single block: far inside 1e-4
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # K7: the kernel sums each dot in lane order and the twin in cuBLAS's,
 # both in f32; maxima are exact, so scores agree to f32 rounding
 MAXSIM_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -115,11 +125,16 @@ CAND_RECIPE, CAND_K = {"block_n": 2048, "seg": 128}, 40
 NEAR_TIE = 1e-5
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_PAIRS, TRAIN_SEQ, TIMED_STEPS = 16, 192, 8
-# H100 SXM data sheet, at 700 W: f32 FLOP/s outside the tensor cores (every
-# kernel of the port computes in f32), the bf16 tensor cores' rate (the
-# peak for K4's and K6's bf16 inputs; bf16 × bf16 and bf16 × int8 products
-# are exact in f32), and HBM3 bytes/s
-F32_FLOPS, BF16_FLOPS, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
+# H100 SXM data sheet, at 700 W: f32 FLOP/s outside the tensor cores, the
+# TF32 tensor cores' dense rate (f32 attention at f32 accuracy takes three
+# TF32 products, 3xTF32, as the bound's basis), the bf16 tensor cores' rate
+# (the peak for bf16 inputs; bf16 × bf16 and bf16 × int8 products are
+# exact in f32), and HBM3 bytes/s
+F32_FLOPS, TF32_FLOPS, BF16_FLOPS, HBM_BYTES_PER_S = (67e12, 495e12, 989e12,
+                                                      3.35e12)
+# the special-function units: 16 exponentials a clock on each SM (Hopper's
+# SFU rate), at the card's maximum SM clock (`sm_clock_hz`)
+SFU_PER_CLOCK, H100_SMS = 16, 132
 
 
 def log(msg: str) -> None:
@@ -186,40 +201,96 @@ def device_ms(fn, iters: int = 10, launches: int | None = None
     return sum(e.self_device_time_total for e in events) / iters / 1e3
 
 
+def device_ms_tries(fn, tries: int = 3) -> float | None:
+    """`device_ms`, taken again where a window lost events (after the serve
+    phases the profiler sometimes does); None if every try lost some."""
+    for _ in range(tries):
+        got = device_ms(fn)
+        if got is not None:
+            return got
+    return None
+
+
 def fmt_ms(x: float | None) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
-def bound(flops: float, nbytes: float, flops_rate: float = F32_FLOPS
-          ) -> dict:
-    """The least time the card could take for the work: the larger of the
-    operations over the peak for their type (f32 unless given) and the
-    bytes (each input read once, each output written once) over the memory
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock as nvidia-smi reads it; an H100 SXM's
+    1,980 MHz where it cannot."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True).stdout.split()
+    except FileNotFoundError:
+        return 1.98e9
+    return float(out[0]) * 1e6 if out and out[0].isdigit() else 1.98e9
+
+
+def bound(flops: float, nbytes: float, flops_rate: float = F32_FLOPS,
+          exps: float = 0.0) -> dict:
+    """The least time the card could take for the work: the largest of the
+    operations over the peak for their type (f32 unless given), the
+    exponentials over the special-function units' rate, and the bytes
+    (each input read once, each output written once) over the memory
     rate."""
     ops_ms = flops / flops_rate * 1e3
+    exp_ms = exps / (SFU_PER_CLOCK * H100_SMS * sm_clock_hz()) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    out = {"bound_ms": max(ops_ms, exp_ms, bytes_ms),
+           "bound_by": ("bytes" if bytes_ms > max(ops_ms, exp_ms)
+                        else "operations")}
+    if exps:
+        out["bound_terms_ms"] = {"products": ops_ms, "exp": exp_ms,
+                                 "bytes": bytes_ms}
+    return out
+
+
+def attention_rate(q) -> tuple:
+    """(operations per flop, peak) of attention's products for q's type on
+    the tensor cores: f32 at f32 accuracy is three TF32 products (3xTF32,
+    as K1 runs it), bf16 one bf16 product."""
+    import torch
+
+    return (3.0, TF32_FLOPS) if q.dtype == torch.float32 else (1.0,
+                                                               BF16_FLOPS)
+
+
+def valid_kv_bytes(q, lengths) -> float:
+    """The bytes of k and v over each batch row's valid keys: those past
+    its length are never needed."""
+    _, h, s, dh = q.shape
+    return 2.0 * h * dh * float(lengths.clamp(0, s).sum()) * q.element_size()
 
 
 def flash_fwd_bound(q, lengths) -> dict:
     """A forward without lse: q·kᵀ and p·v for every query row against the
-    valid keys; q, k, v read and out written."""
+    valid keys, one exponential a valid score; q read, k and v read over
+    the valid keys, out written."""
     _, h, s, dh = q.shape
-    return bound(4.0 * h * s * dh * float(lengths.sum()),
-                 4.0 * q.numel() * q.element_size())
+    scores = h * s * float(lengths.clamp(0, s).sum())
+    per_flop, rate = attention_rate(q)
+    return bound(per_flop * 4.0 * dh * scores,
+                 2.0 * q.numel() * q.element_size()
+                 + valid_kv_bytes(q, lengths), rate, exps=scores)
 
 
 def flash_bwd_bounds(q, lengths) -> dict:
     """dq recomputes s and dp and forms dq (3 products), dk/dv recomputes
     s and dp and forms dv and dk (4), each over valid query rows × valid
-    keys; both read q, k, v, dO, lse and D, and write dq, or dk and dv."""
+    keys, each with one exponential a pair (P again); both read q, dO, lse
+    and D, and k and v over the valid keys, and write dq, or dk and dv."""
     b, h, s, dh = q.shape
-    pairs = float((lengths.double() ** 2).sum())
+    pairs = h * float((lengths.clamp(0, s).double() ** 2).sum())
     t = q.numel() * q.element_size()
-    stats = 2 * b * h * s * 4
-    return {"flash_bwd_dq": bound(6.0 * h * dh * pairs, 5 * t + stats),
-            "flash_bwd_dkv": bound(8.0 * h * dh * pairs, 6 * t + stats)}
+    reads = 2 * t + valid_kv_bytes(q, lengths) + 2 * b * h * s * 4
+    per_flop, rate = attention_rate(q)
+    return {"flash_bwd_dq": bound(per_flop * 6.0 * dh * pairs,
+                                  reads + t, rate, exps=pairs),
+            "flash_bwd_dkv": bound(per_flop * 8.0 * dh * pairs,
+                                   reads + 2 * t, rate, exps=pairs)}
 
 
 def key_mask(q, lengths):
@@ -230,17 +301,28 @@ def key_mask(q, lengths):
             < lengths[:, None])[:, None, None, :]
 
 
-def sdpa_ms(q, k, v, lengths) -> float:
+def library_times(fn) -> dict:
+    """A library call's CUDA-event time, its device time and the name of
+    its longest device kernel (what PyTorch dispatched it to)."""
+    ms = cuda_ms(fn)
+    fn()
+    events = device_events(fn, 1)
+    top = max(events, key=lambda e: e.self_device_time_total, default=None)
+    return {"library_ms": ms, "library_device_ms": device_ms_tries(fn),
+            "library_kernel": None if top is None else top.key}
+
+
+def sdpa_times(q, k, v, lengths) -> dict:
     """`scaled_dot_product_attention` with a boolean key-length mask on the
     same inputs: the yardstick for K1. The port never calls it."""
     import torch.nn.functional as F
 
     mask = key_mask(q, lengths)
-    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                          attn_mask=mask))
+    return library_times(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask))
 
 
-def sdpa_bwd_ms(q, k, v, lengths, g) -> float:
+def sdpa_bwd_times(q, k, v, lengths, g) -> dict:
     """The backward of that call (dq, dk and dv together): the yardstick
     for K8 + K9."""
     import torch
@@ -249,40 +331,87 @@ def sdpa_bwd_ms(q, k, v, lengths, g) -> float:
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg,
                                          attn_mask=key_mask(q, lengths))
-    return cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), g,
-                                               retain_graph=True))
+    return library_times(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), g, retain_graph=True))
 
 
 # ------------------------------------------------------------ kernels
-def check_flash(dev, gen) -> dict:
+def flash_inputs(dev, gen, b, h, s, dh, dtype, lens=None) -> tuple:
+    """Unit Gaussian q, k, v and lengths (random in 1 … S with the first S,
+    as a batch of pairs gives them, where `lens` is None)."""
     import torch
 
+    q, k, v = (torch.randn((b, h, s, dh), generator=gen, device=dev)
+               .to(dtype) for _ in range(3))
+    if lens is None:
+        lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        lengths[0] = s
+    else:
+        lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    return q, k, v, lengths
+
+
+def time_flash(q, k, v, lengths, key: str) -> dict:
+    """K1 at one shape: its CUDA-event and device times, its twin's, SDPA's
+    with the same key mask, and the bound; keys prefixed by `key`."""
     from rag_dpo_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
     )
 
-    # (batch, heads, seq, head_dim, dtype, lengths): the query-encode
-    # buckets, the rerank/ingest batch, a ragged batch with an empty row,
-    # bf16, and the training shape (random ragged lengths, as a batch of
-    # pairs gives them)
-    cases = [(4, 16, s, 64, torch.float32, None)
-             for s in (32, 64, 128, 256, 512)]
-    cases.append((64, 16, 512, 64, torch.float32, None))
-    cases.append((8, 16, 300, 64, torch.float32,
-                  [300, 0, 1, 17, 64, 65, 299, 128]))
-    cases.append((4, 16, 256, 64, torch.bfloat16, [256, 100, 0, 3]))
-    cases.append((TRAIN_PAIRS, 16, TRAIN_SEQ, 64, torch.float32, None))
+    b, h, s, dh = q.shape
+    got = {"ms": cuda_ms(lambda: flash_attention(q, k, v, lengths)),
+           "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v,
+                                                             lengths)),
+           "device_ms": device_ms_tries(lambda: flash_attention(q, k, v,
+                                                               lengths)),
+           "plain_device_ms": device_ms_tries(lambda: flash_attention_plain(
+               q, k, v, lengths)),
+           **sdpa_times(q, k, v, lengths), **flash_fwd_bound(q, lengths),
+           "shape": f"[{b},{h},{s},{dh}] {str(q.dtype)[6:]}"}
+    log(f"  {got['shape']}: kernel {got['ms']:.4f} ms (device "
+        f"{fmt_ms(got['device_ms'])}), plain {got['plain_ms']:.4f} ms "
+        f"(device {fmt_ms(got['plain_device_ms'])}); sdpa with a key mask "
+        f"{got['library_ms']:.4f} ms (device "
+        f"{fmt_ms(got['library_device_ms'])}, {got['library_kernel']}); "
+        f"bound {got['bound_ms']:.4f} ms ({got['bound_by']})")
+    return {f"{key}{n}": x for n, x in got.items()}
+
+
+def check_flash(dev, gen) -> dict:
+    import ctypes
+
+    import torch
+
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (batch, heads, seq, head_dim, dtype, lengths, timing key): the
+    # query-encode buckets, the ingest batch, a ragged batch with an empty
+    # row, bf16, and the training shape (random ragged lengths, as a batch
+    # of pairs gives them), each timed shape in f32 and bf16; then head
+    # widths other than 16/32/64/128 (C-20) and S off the 64-row tiles
+    cases = [(4, 16, s, 64, f32, None, None) for s in (32, 64, 128, 256,
+                                                       512)]
+    cases += [(64, 16, 512, 64, f32, None, "ingest_"),
+              (8, 16, 300, 64, f32, [300, 0, 1, 17, 64, 65, 299, 128], None),
+              (4, 16, 256, 64, bf16, [256, 100, 0, 3], None),
+              (TRAIN_PAIRS, 16, TRAIN_SEQ, 64, f32, None, ""),
+              (TRAIN_PAIRS, 16, TRAIN_SEQ, 64, bf16, None, "bf16_"),
+              (64, 16, 512, 64, bf16, None, "bf16_ingest_")]
+    cases += [(3, 4, 65, dh, f32, [65, 0, 1], None)
+              for dh in (8, 40, 80, 96, 200, 256, 320)]
+    cases += [(3, 4, 65, 80, bf16, [65, 0, 1], None)]
+    cases += [(2, 4, s, dh, f32, [s, 1], None) for s in (1, 63, 65, 513)
+              for dh in (64, 80)]
     worst, timed = 0.0, {}
-    for b, h, s, dh, dtype, lens in cases:
-        q, k, v = (torch.randn((b, h, s, dh), generator=gen, device=dev)
-                   .to(dtype) for _ in range(3))
-        if lens is None:
-            lengths = torch.randint(1, s + 1, (b,), generator=gen,
-                                    device=dev, dtype=torch.int32)
-            lengths[0] = s
-        else:
-            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for b, h, s, dh, dtype, lens, key in cases:
+        q, k, v, lengths = flash_inputs(dev, gen, b, h, s, dh, dtype, lens)
         out, lse = flash_attention(q, k, v, lengths, return_lse=True)
         ref, ref_lse = flash_attention_plain(q, k, v, lengths,
                                              return_lse=True)
@@ -294,36 +423,54 @@ def check_flash(dev, gen) -> dict:
                                    rtol=tol)
         torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
         if lens is not None and 0 in lens:
-            check(bool((out[lens.index(0)] == 0).all()),
-                  "a row with no keys is not 0")
-        ms = cuda_ms(lambda: flash_attention(q, k, v, lengths))
-        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, lengths))
+            z = lens.index(0)
+            check(bool((out[z] == 0).all()) and bool((lse[z] == -1e20).all()),
+                  "a row with no keys is not 0 with lse -1e20")
+        again = flash_attention(q, k, v, lengths, return_lse=True)
+        check(torch.equal(again[0], out) and torch.equal(again[1], lse),
+              f"flash_fwd gave other bits the second time at {q.shape}")
         log(f"flash_fwd [{b},{h},{s},{dh}] {str(dtype)[6:]} "
-            f"max_abs_err={err:.3g} lse_err={lse_err:.3g} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-        if dtype == torch.float32:
+            f"max_abs_err={err:.3g} lse_err={lse_err:.3g}")
+        if dtype == f32:
             worst = max(worst, err)
-        key = {(TRAIN_PAIRS, TRAIN_SEQ): "", (64, 512): "serve_"}.get((b, s))
         if key is not None:
-            dms = device_ms(lambda: flash_attention(q, k, v, lengths))
-            plain_dms = device_ms(lambda: flash_attention_plain(q, k, v,
-                                                                lengths))
-            lib_ms = sdpa_ms(q, k, v, lengths)
-            bnd = flash_fwd_bound(q, lengths)
             timed.update({f"{key}max_abs_err": err,
                           f"{key}lse_max_abs_err": lse_err,
-                          f"{key}ms": ms, f"{key}plain_ms": plain_ms,
-                          f"{key}device_ms": dms,
-                          f"{key}plain_device_ms": plain_dms,
-                          f"{key}library_ms": lib_ms,
-                          **{f"{key}{n}": x for n, x in bnd.items()},
-                          f"{key}shape": f"[{b},{h},{s},{dh}] f32"})
-            log(f"  device only: kernel {fmt_ms(dms)}, plain "
-                f"{fmt_ms(plain_dms)}; sdpa with a key mask {lib_ms:.4f} ms; "
-                f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+                          **time_flash(q, k, v, lengths, key)})
+    lib = _kernels.load("flash_fwd")
+    lib.flash_fwd_smem.restype = ctypes.c_longlong
+    lib.flash_fwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem = {"f32": lib.flash_fwd_smem(0, 64), "bf16": lib.flash_fwd_smem(1,
+                                                                         64)}
+    log(f"flash_fwd shared memory a block at Dh 64: {smem}")
     # the unprefixed numbers are the training shape's, where the main
-    # path's launches are counted; serve_ keys hold the ingest batch's
-    return {**timed, "all_f32_cases_max_abs_err": worst}
+    # path's launches are counted; ingest_ and bf16_ keys hold the others
+    return {**timed, "all_f32_cases_max_abs_err": worst,
+            "smem_bytes_dh64": smem}
+
+
+def time_serve_flash(dev, gen, shapes: dict) -> dict:
+    """K1 and SDPA at the serve phase's own shapes: of the smallest batch
+    (the query encode, its variants padded to a batch bucket) and of the
+    largest (the cross-encoder over 40 candidates, padded likewise) the
+    shape called most in one query, with its first call's lengths. After the serve phase the
+    profiler may lose events: device times there can read not measured."""
+    import torch
+
+    out = {}
+    batches = sorted({shape[0] for shape in shapes})
+    for key, batch in (("serve_query_", batches[0]),
+                       ("serve_rerank_", batches[-1])):
+        shape, (count, lengths) = max(
+            ((sh, v) for sh, v in shapes.items() if sh[0] == batch),
+            key=lambda item: item[1][0])
+        b, h, s, dh = shape
+        q, k, v, _ = flash_inputs(dev, gen, b, h, s, dh, torch.float32)
+        log(f"flash_fwd at the serve phase's shape {list(shape)} ({count} "
+            f"calls a query), lengths {lengths.tolist()}")
+        out.update({f"{key}calls": count,
+                    **time_flash(q, k, v, lengths.to(dev), key)})
+    return out
 
 
 def check_ell(dev, gen) -> dict:
@@ -508,14 +655,17 @@ def check_flash_bwd(dev, gen) -> dict:
     )
 
     # (batch, heads, seq, head_dim, dtype, lengths): the training shape,
-    # the ingest batch, a ragged batch with an empty row, bf16, Dh 16/128
+    # the ingest batch, a ragged batch with an empty row, bf16, Dh 16/128,
+    # and Dh 80 and 320, which go in padded with zero columns (C-20)
     cases = [(16, 16, TRAIN_SEQ, 64, torch.float32, None),
              (64, 16, 512, 64, torch.float32, None),
              (8, 16, 300, 64, torch.float32,
               [300, 0, 1, 17, 64, 65, 299, 128]),
              (4, 16, 256, 64, torch.bfloat16, [256, 100, 0, 3]),
              (4, 8, 200, 16, torch.float32, [200, 0, 64, 199]),
-             (4, 8, 130, 128, torch.float32, [130, 64, 0, 1])]
+             (4, 8, 130, 128, torch.float32, [130, 64, 0, 1]),
+             (4, 4, 150, 80, torch.float32, [150, 0, 77, 1]),
+             (2, 4, 100, 320, torch.float32, [100, 33])]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     main = {}
     for b, h, s, dh, dtype, lens in cases:
@@ -536,7 +686,7 @@ def check_flash_bwd(dev, gen) -> dict:
         torch.cuda.synchronize()
         # dq sums keys, dk/dv queries, in 64-row tiles; the twin in one
         # cuBLAS product; both in f32, and bf16 rounds the outputs
-        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        tol = FLASH_BWD_TOL[str(dtype).split(".")[1]]
         errs, sizes = {}, {}
         for name, got, ref in (("dq", dq, rq), ("dk", dk, rk),
                                ("dv", dv, rv)):
@@ -574,19 +724,21 @@ def check_flash_bwd(dev, gen) -> dict:
                 "flash_bwd_dkv": (
                     device_ms(lambda: flash_bwd_dkv(*args)),
                     device_ms(lambda: flash_bwd_dkv_plain(*args)))}
-            lib_ms = sdpa_bwd_ms(q, k, v, lengths, g)
+            lib = sdpa_bwd_times(q, k, v, lengths, g)
             bnds = flash_bwd_bounds(q, lengths)
             for name, (kd, pd) in dev_ms.items():
                 main[name] = {"ms": ms[name], "plain_ms": plain[name],
                               "device_ms": kd, "plain_device_ms": pd,
-                              **bnds[name], "library_ms": lib_ms,
+                              **bnds[name], **lib,
                               "library_covers": "flash_bwd_dq and "
                                                 "flash_bwd_dkv together"}
                 log(f"  {name} device only: kernel {fmt_ms(kd)}, plain "
                     f"{fmt_ms(pd)}; bound {bnds[name]['bound_ms']:.4f} ms "
                     f"({bnds[name]['bound_by']})")
             log(f"  sdpa backward with a key mask (dq, dk, dv together) "
-                f"{lib_ms:.4f} ms")
+                f"{lib['library_ms']:.4f} ms (device "
+                f"{fmt_ms(lib['library_device_ms'])}, "
+                f"{lib['library_kernel']})")
     shape = f"[16,16,{TRAIN_SEQ},64] f32"
     return {name: {"max_abs_err": worst[name], **main[name], "shape": shape}
             for name in worst}
@@ -975,6 +1127,12 @@ LIMIT_K4 = ((7, 1000, 40, "bfloat16"), (300, 1536, 40, "bfloat16"),
             (7, 1000, 512, "float32"), (300, 1536, 1024, "float32"))
 LIMIT_K5 = ((7, 1000, "bfloat16"), (300, 1536, "bfloat16"),
             (7, 1536, "float32"))
+# K5 at segs it refused before (C-19): (block_n, seg, per_seg, dtype) over
+# 64 queries × 256 dims: a span cut short of a 128-row tile (lcm(80, 128)
+# = 640), a segment narrower than a warp, and segments cut into 512-row
+# pieces whose picks a second pass merges
+LIMIT_SEGS = ((1280, 80, 2, "bfloat16"), (2048, 8, 2, "float32"),
+              (2048, 1024, 4, "bfloat16"), (2000, 1000, 2, "float32"))
 
 
 def check_former_limits(dev, gen) -> dict:
@@ -1037,6 +1195,22 @@ def check_former_limits(dev, gen) -> dict:
         launched("fused_candidates", before)
         log(f"former limit K5 [{q}x{d}]x[{LIMIT_ROWS}x{d}] {dtype}: "
             f"max_abs_err strip {err_s:.3g}, top-512 {err_t:.3g}")
+    for block_n, seg, per_seg, dtype in LIMIT_SEGS:
+        dt = getattr(torch, dtype)
+        e, qq = rows(256).to(dt), queries(64, 256).to(dt)
+        kw = dict(penalty=pen, block_n=block_n, seg=seg, per_seg=per_seg)
+        before = _kernels.LAUNCHES["fused_candidates"]
+        strip = seg_candidates(qq, e, **kw)
+        err_s, ties = candidates_gap(qq, e, pen, strip,
+                                     seg_candidates_plain(qq, e, **kw),
+                                     f"seg={seg} {dtype} strip")
+        check(all(torch.equal(a, b) for a, b in
+                  zip(strip, seg_candidates(qq, e, **kw))),
+              f"fused_candidates seg={seg}: other bits the second time")
+        launched("fused_candidates", before)
+        log(f"former limit K5 seg={seg} block_n={block_n} per_seg={per_seg} "
+            f"[64x256]x[{LIMIT_ROWS}x256] {dtype}: strip max_abs_err "
+            f"{err_s:.3g}, {ties} near-tie ids of {strip[1].numel()}")
     e_i8, e_scale = quantize_rows(rows(1536))
     qq = queries(4, 1536).to(torch.bfloat16)
     before = _kernels.LAUNCHES["pooled_max"]
@@ -1444,6 +1618,7 @@ def run_path(seed: int, dev, dataset, chunks, colbert_len: int) -> dict:
         times = timed_queries(stack.pipeline, questions)
         launches = dict(_kernels.LAUNCHES)
         plain = dict(_kernels.PLAIN_ON_CUDA)
+        shapes = record_flash_shapes(stack.pipeline, questions[1])
         busy, _ = profile_once(lambda: stack.pipeline.query(questions[1]),
                                "one query", float(np.median(times)))
         check(reranker.calls and all(c.rerank_score is not None
@@ -1454,11 +1629,39 @@ def run_path(seed: int, dev, dataset, chunks, colbert_len: int) -> dict:
             f"ms; launches {launches}, plain twins on the card {plain}")
         maxsim = serve_maxsim(stack, questions, colbert_len)
     return {"launches": launches, "plain_on_cuda": plain,
+            "flash_shapes": shapes,
             "ingest_chunks_per_s": N_CHUNKS / ingest_s,
             "colbert_store_gb": store_gb, "ingest_host_peak_gb": rss_gb,
             "query_p50_ms": float(np.median(times) * 1e3),
             "query_max_ms": float(max(times) * 1e3),
             "query_device_busy_share": busy, "maxsim": maxsim}
+
+
+def record_flash_shapes(pipeline, question) -> dict:
+    """The encoders' attention shapes in one untimed query: the calls of
+    each and its first call's lengths, for K1's timing at the serve phase's
+    own shapes. Every call must be one of K1's launches."""
+    from rag_dpo_tpu_torch.ops import _kernels, flash_attention_bwd
+
+    shapes, forward = {}, flash_attention_bwd.flash_attention
+
+    def recorded(q, k, v, lengths, *a, **kw):
+        key = tuple(q.shape)
+        if key not in shapes:
+            shapes[key] = [0, lengths.clone()]
+        shapes[key][0] += 1
+        return forward(q, k, v, lengths, *a, **kw)
+
+    before = _kernels.LAUNCHES["flash_fwd"]
+    flash_attention_bwd.flash_attention = recorded
+    try:
+        pipeline.query(question)
+    finally:
+        flash_attention_bwd.flash_attention = forward
+    check(sum(n for n, _ in shapes.values())
+          == _kernels.LAUNCHES["flash_fwd"] - before,
+          "the recorded attention calls are not K1's launches")
+    return shapes
 
 
 def timed_queries(pipeline, questions) -> list[float]:
@@ -1728,8 +1931,9 @@ def run_train(seed: int, dev) -> dict:
 
 
 def kernel_name(mangled: str) -> str:
-    """`ns::name<N>` of a kernel in an anonymous namespace, from its
-    mangled name (the mangled name where it is not one)."""
+    """`name<f32, 64>` of a kernel in an anonymous namespace, from its
+    mangled name (the mangled name where it is not one); template
+    arguments of type float / bf16 and int are read."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -1739,8 +1943,13 @@ def kernel_name(mangled: str) -> str:
         return mangled
     j = i + m.end()
     name = mangled[j:j + int(m.group(1))]
-    t = re.match(r"ILi(\d+)E", mangled[j + int(m.group(1)):])
-    return name + (f"<{t.group(1)}>" if t else "")
+    t = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E",
+                 mangled[j + int(m.group(1)):])
+    if not t:
+        return name
+    args = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(a, n) for a, n in
+            re.findall(r"(f|13__nv_bfloat16|Li(\d+)E)", t.group(1))]
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_report(text: str) -> list:
@@ -1785,6 +1994,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout
     log(smi.strip().splitlines()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"max SM clock {sm_clock_hz() / 1e6:.0f} MHz (the exponentials' "
+        f"bound)")
 
     from rag_dpo_tpu_torch.ops import _kernels
 
@@ -1849,6 +2060,7 @@ def main() -> int:
           f"{path['maxsim']['plain_on_cuda']}")
     gc.collect()  # the serve phase's models and index
     torch.cuda.empty_cache()
+    flash.update(time_serve_flash(dev, gen, path.pop("flash_shapes")))
     hermetic = run_hermetic(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1862,6 +2074,8 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "rag_dpo_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "rag_dpo_tpu/ops/flash_attention_bwd.py:33",
+         "instructions": "mma.sync m16n8k8 tf32 (f32: 3xTF32) + m16n8k16 "
+                         "bf16 (bf16 inputs)",
          "launches": train["launches"]["flash_fwd"],
          "serve_launches": path["launches"]["flash_fwd"],
          **flash},

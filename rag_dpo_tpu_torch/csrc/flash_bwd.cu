@@ -12,22 +12,25 @@
 //   dK = scale * dS^T . Q,  dV = P^T . dO   over query rows < length only
 //
 // Layout: q, k, v, dout and the gradients are [B, H, S, Dh] contiguous;
-// lengths [B] int32; lse and D [B, H, S] f32. One block of 256 threads owns
-// one (b*h, 64-row tile): a query tile for dq, a key tile for dk/dv. It
+// lengths [B] int32; lse and D [B, H, S] f32. One block of 4·R threads owns
+// one (b*h, R-row tile): a query tile for dq, a key tile for dk/dv. It
 // keeps its own tile and its f32 accumulators on chip and loops over the
-// other side's 64-row tiles below min(lengths[b], S); thread t owns row t/4
-// of its tile and the columns (t%4) + 4*j. Tiles that hold only rows at or
-// past the length are skipped: their P is 0. The ragged edge of S is masked
-// in the kernel; nothing is padded in memory.
+// other side's R-row tiles below min(lengths[b], S); thread t owns row t/4
+// of its tile and the columns (t%4) + 4*j. R is 64 for DH up to 128, 32 at
+// 256 and 16 at 512, so four tiles fit in shared memory. Tiles that hold
+// only rows at or past the length are skipped: their P is 0. The ragged
+// edge of S is masked in the kernel; nothing is padded in memory. DH is one
+// of 16, 32, 64, 128, 256 and 512: the wrapper pads other widths with zero
+// columns, which add exact zeros to every sum.
 //
-// What bounds it on an H100: like flash_fwd.cu, the products run on the CUDA
-// cores in full f32 (no tensor cores, so f32 inputs keep f32 accuracy), one
-// shared-memory operand per FMA. dq does three 64x64xDh products per tile
+// What bounds it on an H100: the products run on the CUDA cores in full f32
+// (no tensor cores; flash_fwd.cu's split onto them is the next step), one
+// shared-memory operand per FMA. dq does three RxRxDh products per tile
 // pair (S, dO.V^T, dS.K), dk/dv four (S^T, V.dO^T, P^T.dO, dS^T.Q), with the
 // S and dO.V^T products recomputed by both kernels instead of kept in device
 // memory. Rows in shared memory are padded by one word so the eight rows a
-// warp reads at once fall in distinct banks. wgmma, TMA and bf16 P are later
-// work (PERF.md).
+// warp reads at once fall in distinct banks. At DH 256 and 512 the
+// accumulators spill (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,9 +39,12 @@
 
 namespace {
 
-constexpr int kBlock = 64;     // rows of a tile, on both sides
-constexpr int kThreads = 256;  // 4 threads per row of the block's own tile
-constexpr int kScores = kBlock / 4;  // entries of a score row per thread
+// rows of a tile, on both sides; the block has 4 threads per row of its own
+// tile and each thread kBlock / 4 entries of a score row
+template <int DH>
+__host__ __device__ constexpr int block_rows() {
+  return DH <= 128 ? 64 : DH <= 256 ? 32 : 16;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -58,6 +64,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T, int DH>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
                                           int S) {
+  constexpr int kBlock = block_rows<DH>(), kThreads = 4 * kBlock;
   for (int e = threadIdx.x; e < kBlock * DH; e += kThreads) {
     const int rr = e / DH, d = e % DH, row = row0 + rr;
     dst[rr * (DH + 1) + d] =
@@ -67,23 +74,26 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
 
 template <int DH>
 constexpr size_t dq_smem_bytes() {
+  constexpr size_t kBlock = block_rows<DH>();
   return sizeof(float) * (4 * kBlock * (DH + 1) + kBlock * (kBlock + 1));
 }
 
 template <int DH>
 constexpr size_t dkv_smem_bytes() {
+  constexpr size_t kBlock = block_rows<DH>();
   return sizeof(float) *
          (4 * kBlock * (DH + 1) + 2 * kBlock * (kBlock + 1) + 2 * kBlock);
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(4 * block_rows<DH>())
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const int* __restrict__ lengths,
                     const float* __restrict__ lse,
                     const float* __restrict__ dd, T* __restrict__ dq, int H,
                     int S, int n_qtiles, float scale) {
+  constexpr int kBlock = block_rows<DH>(), kScores = kBlock / 4;
   extern __shared__ float smem[];
   float* qs = smem;                     // [kBlock][DH + 1]
   float* dos = qs + kBlock * (DH + 1);  // [kBlock][DH + 1]
@@ -166,7 +176,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(4 * block_rows<DH>())
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const int* __restrict__ lengths,
@@ -174,6 +184,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ dd, T* __restrict__ dk,
                      T* __restrict__ dv, int H, int S, int n_ktiles,
                      float scale) {
+  constexpr int kBlock = block_rows<DH>(), kScores = kBlock / 4;
   extern __shared__ float smem[];
   float* ks = smem;                     // [kBlock][DH + 1]
   float* vs = ks + kBlock * (DH + 1);   // [kBlock][DH + 1]
@@ -278,10 +289,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  constexpr int kBlock = block_rows<DH>();
   const int n_qtiles = (S + kBlock - 1) / kBlock;
   const long long n_blocks = static_cast<long long>(n_qtiles) * B * H;
   if (n_blocks == 0) return cudaSuccess;
-  kernel<<<static_cast<unsigned>(n_blocks), kThreads, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(n_blocks), 4 * kBlock, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lengths, lse, dd,
       static_cast<T*>(dq), H, S, n_qtiles, scale);
@@ -299,10 +311,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  constexpr int kBlock = block_rows<DH>();
   const int n_ktiles = (S + kBlock - 1) / kBlock;
   const long long n_blocks = static_cast<long long>(n_ktiles) * B * H;
   if (n_blocks == 0) return cudaSuccess;
-  kernel<<<static_cast<unsigned>(n_blocks), kThreads, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(n_blocks), 4 * kBlock, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lengths, lse, dd,
       static_cast<T*>(dk), static_cast<T*>(dv), H, S, n_ktiles, scale);
@@ -320,6 +333,8 @@ cudaError_t dispatch_dq(const void* q, const void* k, const void* v,
     case 32: return launch_dq<T, 32>(q, k, v, dout, lengths, lse, dd, dq, B, H, S, scale, st);
     case 64: return launch_dq<T, 64>(q, k, v, dout, lengths, lse, dd, dq, B, H, S, scale, st);
     case 128: return launch_dq<T, 128>(q, k, v, dout, lengths, lse, dd, dq, B, H, S, scale, st);
+    case 256: return launch_dq<T, 256>(q, k, v, dout, lengths, lse, dd, dq, B, H, S, scale, st);
+    case 512: return launch_dq<T, 512>(q, k, v, dout, lengths, lse, dd, dq, B, H, S, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -335,6 +350,8 @@ cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
     case 32: return launch_dkv<T, 32>(q, k, v, dout, lengths, lse, dd, dk, dv, B, H, S, scale, st);
     case 64: return launch_dkv<T, 64>(q, k, v, dout, lengths, lse, dd, dk, dv, B, H, S, scale, st);
     case 128: return launch_dkv<T, 128>(q, k, v, dout, lengths, lse, dd, dk, dv, B, H, S, scale, st);
+    case 256: return launch_dkv<T, 256>(q, k, v, dout, lengths, lse, dd, dk, dv, B, H, S, scale, st);
+    case 512: return launch_dkv<T, 512>(q, k, v, dout, lengths, lse, dd, dk, dv, B, H, S, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

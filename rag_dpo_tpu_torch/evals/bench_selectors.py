@@ -1,6 +1,7 @@
 """Time the top-k selectors K4 (`ops.topk.fused_topk`), K5
-(`ops.topk.seg_candidates`) and K3 (`ops.sparse.ell_topk`) of one checkout
-on one NVIDIA card.
+(`ops.topk.seg_candidates`) and K3 (`ops.sparse.ell_topk`), and the flash
+forward K1 (`ops.flash_attention.flash_attention`), of one checkout on one
+NVIDIA card.
 
     python rag_dpo_tpu_torch/evals/bench_selectors.py [--root DIR] [--label L]
 
@@ -13,9 +14,13 @@ K4 and K5 are timed at Q 1, 64 and 256 and at the serve shape (4 queries
 × the first 17,408 rows), each beside `torch.topk(torch.addmm(pen, q,
 e.T), 40)` on the same inputs. K3 is timed at the serve path's sparse
 shape as `chip_smoke.py` builds it: 17,408 ELL rows of 32 Zipf terms over
-a 4,000-term vocabulary, 4 queries of 20 terms padded to 32, k 40. Each
-time is CUDA events over 20 calls after 3 warm-up calls. Prints the card's
-name and power limit, then one JSON line.
+a 4,000-term vocabulary, 4 queries of 20 terms padded to 32, k 40. K1 is
+timed at the training shape [16,16,192,64] and at the ingest batch
+[64,16,512,64], f32 unit Gaussian q, k, v from seed 5 with ragged lengths
+(random in 1 ... S, the first S, as `chip_smoke.py` times them), beside
+`scaled_dot_product_attention` with the same key mask. Each time is CUDA
+events over 20 calls after 3 warm-up calls. Prints the card's name and
+power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import subprocess
 import sys
 
 BATCHES = (1, 64, 256)
+FLASH_SHAPES = ((16, 16, 192, 64), (64, 16, 512, 64))
 
 
 def main() -> int:
@@ -42,6 +48,7 @@ def main() -> int:
         print("bench_selectors: needs an NVIDIA card", file=sys.stderr)
         return 1
     from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.ops.flash_attention import flash_attention
     from rag_dpo_tpu_torch.ops.sparse import ell_topk
     from rag_dpo_tpu_torch.ops.topk import fused_topk, seg_candidates
 
@@ -111,6 +118,21 @@ def main() -> int:
     qw = torch.where(qt >= 0, torch.rand((4, 32), generator=gen,
                                          device=dev) * 5.0, 0.0)
     out["serve"]["k3_ms"] = ms(lambda: ell_topk(terms, imps, qt, qw, k=40))
+
+    import torch.nn.functional as F
+
+    for b, h, s, dh in FLASH_SHAPES:
+        q, k, v = (torch.randn((b, h, s, dh), generator=gen, device=dev)
+                   for _ in range(3))
+        lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        lengths[0] = s
+        mask = (torch.arange(s, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        out[f"flash_{b}x{h}x{s}x{dh}"] = {
+            "k1_ms": ms(lambda: flash_attention(q, k, v, lengths)),
+            "library_ms": ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask))}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -71,8 +71,8 @@ SIGNATURES = {
     # stream
     "pooled_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # dtype, q, e, penalty, P, Q, N, D, block_n, seg, per_seg, tile_q,
-    # stages, n_blocks, out_s, out_i, stream
-    "fused_candidates": [_I, _P, _P, _P, *[_I] * 10, _P, _P, _P],
+    # stages, n_blocks, scr_s, scr_i, out_s, out_i, stream
+    "fused_candidates": [_I, _P, _P, _P, *[_I] * 10, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -3,10 +3,17 @@
 `flash_attention` is the port of both Pallas forwards of the JAX package
 (`ops/flash_attention.py::flash_attention` and
 `ops/flash_attention_bwd.py::_fwd_with_stats`): on a CUDA tensor it launches
-the hand-written kernel in `csrc/flash_fwd.cu`, on a CPU tensor it runs
+the hand-written kernel in `csrc/flash_fwd.cu` (both products on the tensor
+cores; f32 inputs as 3xTF32, three TF32 products of a split into big and
+small parts, which keeps f32 accuracy), on a CPU tensor it runs
 `flash_attention_plain`, the same math in one key block. Both keep the
 reference's clamps (running max ≥ −1e20, denominator ≥ 1e-30), so a row
 whose keys are all masked outputs 0, not NaN, and its lse is −1e20.
+
+The kernels are built for the head widths `KERNEL_WIDTHS`. The forward
+takes any Dh up to the last and fills the columns past it with zeros as
+it loads; the backward kernels get copies padded by `pad_head`. A zero
+column adds an exact zero to every sum, so neither changes a bit.
 
 `attention_reference` is the plain softmax oracle, with the JAX
 reference's semantics: a fully masked row averages over all keys. The
@@ -21,7 +28,23 @@ from . import _kernels
 
 NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_DH = (16, 32, 64, 128)
+KERNEL_WIDTHS = (16, 32, 64, 128, 256, 512)
+
+
+def kernel_width(dh: int) -> int:
+    """The narrowest width the kernels are built for that holds `dh`."""
+    for w in KERNEL_WIDTHS:
+        if dh <= w:
+            return w
+    raise ValueError(f"the flash kernels take head widths up to "
+                     f"{KERNEL_WIDTHS[-1]}, got Dh={dh}")
+
+
+def pad_head(x, width: int):
+    """`x` [..., Dh] with zero columns up to `width` (a copy), or `x`
+    itself when Dh is `width` already."""
+    extra = width - x.shape[-1]
+    return torch.nn.functional.pad(x, (0, extra)) if extra else x
 
 
 def attention_reference(q, k, v, lengths=None, scale: float | None = None):
@@ -74,16 +97,17 @@ def flash_attention(q, k, v, lengths=None, scale: float | None = None,
 
     Returns out [B, H, S, Dh] in q's dtype, and with `return_lse` also the
     per-row logsumexp [B, H, S, 1] f32. CPU tensors take the plain twin;
-    CUDA tensors (f32 or bf16, Dh ∈ {16, 32, 64, 128}) launch the kernel
-    or raise."""
+    CUDA tensors (f32 or bf16, 1 ≤ Dh ≤ 512) launch the kernel or
+    raise."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, lengths, scale, return_lse)
     lengths, scale = _defaults(q, lengths, scale)
     b, h, s, dh = q.shape
-    if q.dtype not in _KERNEL_DTYPES or dh not in _KERNEL_DH:
-        raise ValueError(
-            f"flash kernel takes f32/bf16 with Dh in {_KERNEL_DH}, got "
-            f"{q.dtype} Dh={dh}")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"flash kernel takes f32 or bf16, got {q.dtype}")
+    if dh < 1:
+        raise ValueError(f"flash kernel takes Dh ≥ 1, got {dh}")
+    kernel_width(dh)  # raises past the widest instance
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"{name} must match q in shape, dtype, device")

@@ -7,7 +7,10 @@ backward computes dq and dk/dv blockwise from (q, k, v, lse), the
 FlashAttention-2 backward, so nothing [S, S] is kept between the two.
 
 On CUDA tensors the backward launches the hand-written kernels of
-`csrc/flash_bwd.cu` (`flash_bwd_dq`, `flash_bwd_dkv`); on CPU tensors it
+`csrc/flash_bwd.cu` (`flash_bwd_dq`, `flash_bwd_dkv`), built for the widths
+`KERNEL_WIDTHS`: q, k, v and dO of another Dh go in as copies padded with
+zero columns (`pad_head`) and the gradients come back sliced, with `scale`
+from the true Dh, which changes no bit; on CPU tensors it
 runs their plain twins, which compute what the reference's `_fused_bwd`
 computes, written out rather than taken from autograd through
 `flash_attention_plain`: the reference zeroes dq on padded query rows and
@@ -24,11 +27,12 @@ import torch
 
 from . import _kernels
 from .flash_attention import (
-    _KERNEL_DH,
     _KERNEL_DTYPES,
     NEG_INF,
     _defaults,
     flash_attention,
+    kernel_width,
+    pad_head,
 )
 
 
@@ -89,13 +93,13 @@ def flash_attention_bwd_plain(q, k, v, lengths, out, lse, g,
 
 
 def _kernel_args(q, k, v, lengths, lse, dd, g):
-    """Checked, contiguous kernel inputs; raises on what the kernels do
-    not take."""
+    """Checked, contiguous kernel inputs, q, k, v and g padded to the
+    kernels' width; raises on what the kernels do not take."""
     b, h, s, dh = q.shape
-    if q.dtype not in _KERNEL_DTYPES or dh not in _KERNEL_DH:
-        raise ValueError(
-            f"flash backward kernels take f32/bf16 with Dh in {_KERNEL_DH}, "
-            f"got {q.dtype} Dh={dh}")
+    if q.dtype not in _KERNEL_DTYPES or dh < 1:
+        raise ValueError(f"flash backward kernels take f32 or bf16 with "
+                         f"Dh ≥ 1, got {q.dtype} Dh={dh}")
+    width = kernel_width(dh)
     for x in (k, v, g):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError("k, v and the gradient must match q in shape, "
@@ -106,7 +110,12 @@ def _kernel_args(q, k, v, lengths, lse, dd, g):
                              f"{tuple(x.shape)}")
     lengths = lengths.to(device=q.device, dtype=torch.int32)
     lse, dd = (x.to(device=q.device, dtype=torch.float32) for x in (lse, dd))
+    q, k, v, g = (pad_head(x, width) for x in (q, k, v, g))
     return [x.contiguous() for x in (q, k, v, g, lengths, lse, dd)]
+
+
+def _unpad(x, dh: int):
+    return x if x.shape[-1] == dh else x[..., :dh].contiguous()
 
 
 def flash_bwd_dq(q, k, v, lengths, lse, dd, g, scale: float):
@@ -119,10 +128,10 @@ def flash_bwd_dq(q, k, v, lengths, lse, dd, g, scale: float):
     with torch.cuda.device(q.device):
         err = lib.flash_bwd_dq(
             _KERNEL_DTYPES[q.dtype], *map(_kernels.ptr, args),
-            _kernels.ptr(dq), *q.shape, scale, _kernels.stream_of(q))
+            _kernels.ptr(dq), *args[0].shape, scale, _kernels.stream_of(q))
     _kernels.check(lib, err, "flash_bwd_dq")
     _kernels.LAUNCHES["flash_bwd_dq"] += 1
-    return dq
+    return _unpad(dq, q.shape[-1])
 
 
 def flash_bwd_dkv(q, k, v, lengths, lse, dd, g, scale: float):
@@ -135,11 +144,11 @@ def flash_bwd_dkv(q, k, v, lengths, lse, dd, g, scale: float):
     with torch.cuda.device(q.device):
         err = lib.flash_bwd_dkv(
             _KERNEL_DTYPES[q.dtype], *map(_kernels.ptr, args),
-            _kernels.ptr(dk), _kernels.ptr(dv), *q.shape, scale,
+            _kernels.ptr(dk), _kernels.ptr(dv), *args[0].shape, scale,
             _kernels.stream_of(q))
     _kernels.check(lib, err, "flash_bwd_dkv")
     _kernels.LAUNCHES["flash_bwd_dkv"] += 1
-    return dk, dv
+    return _unpad(dk, q.shape[-1]), _unpad(dv, q.shape[-1])
 
 
 def flash_attention_bwd(q, k, v, lengths, out, lse, g,

@@ -134,14 +134,31 @@ def topk_plan(q: int, n: int, k: int, dtype, sms: int = H100_SMS) -> dict:
                                               + (k if merge_in_smem else 0))}
 
 
+def seg_spans(seg: int) -> tuple[int, int]:
+    """csrc/seg_candidates.cu::span_plan: the rows of K5's span and the
+    pieces a segment is cut into. A span holds whole segments, lcm(seg,
+    128) rows where that is ≤ 512, else as many as 512 rows hold; a segment
+    longer than 512 rows is cut into pieces of 512 (the last shorter), one
+    span each, whose picks a second pass merges."""
+    if seg > _SEG_MAX_SPAN:
+        return _SEG_MAX_SPAN, -(-seg // _SEG_MAX_SPAN)
+    span = math.lcm(seg, _FUSED_TILE_N)
+    return (span if span <= _SEG_MAX_SPAN
+            else seg * (_SEG_MAX_SPAN // seg)), 1
+
+
 def candidates_plan(q: int, n: int, dtype, *, block_n: int, seg: int,
                     tile_q: int = 64, sms: int = H100_SMS) -> dict:
     """K5's launch. bf16 (wgmma): the query tile is Q rounded up to a
     power of two in 8 … 128 (halved while a [tile, span] score tile and a
     three-slot ring do not fit), the ring takes the rest; one block per SM,
-    walking spans. f32 (SIMT): `tile_q` rounded to 16 or 64 queries."""
-    span = math.lcm(seg, _FUSED_TILE_N)
-    n_spans = -(-(-(-n // block_n) * block_n) // span)
+    walking spans. f32 (SIMT): `tile_q` rounded to 16 or 64 queries.
+    `pieces` > 1 (seg > 512) adds the merge pass and its scratch of
+    `scratch` (score, row) entries."""
+    span, pieces = seg_spans(seg)
+    n_segs = -(-n // block_n) * (block_n // seg)
+    n_spans = (n_segs * pieces if pieces > 1
+               else -(-(n_segs * seg) // span))
     if dtype == torch.bfloat16:
         route, tq = "wgmma", _pow2_tile(q)
         while (tq > TC_TILES[0] and _ring_bytes(tq, _RING_MIN)
@@ -158,7 +175,8 @@ def candidates_plan(q: int, n: int, dtype, *, block_n: int, seg: int,
         n_blocks = min(n_spans, 65_535)
     return {"route": route, "tile_q": tq, "stages": stages,
             "smem_bytes": smem, "span": span, "n_spans": n_spans,
-            "n_blocks": n_blocks, "q_tiles": -(-q // tq)}
+            "n_blocks": n_blocks, "q_tiles": -(-q // tq), "pieces": pieces,
+            "scratch": 0 if pieces == 1 else q * n_segs * pieces}
 
 
 def _sort_desc(x):
@@ -390,11 +408,9 @@ def _seg_candidates_kernel(queries, embs, penalty, block_n, tile_q, seg,
                            per_seg):
     queries, embs, penalty = _dense_inputs("fused_candidates", queries, embs,
                                            penalty)
-    if not (seg > 0 and seg % 32 == 0 and block_n > 0 and block_n % seg == 0
-            and math.lcm(seg, _FUSED_TILE_N) <= _SEG_MAX_SPAN):
-        raise ValueError(f"the CUDA fused_candidates kernel takes seg a "
-                         f"multiple of 32 dividing block_n with lcm(seg, 128) "
-                         f"≤ {_SEG_MAX_SPAN}, got seg={seg} block_n={block_n}")
+    if not (seg > 0 and block_n > 0 and block_n % seg == 0):
+        raise ValueError(f"fused_candidates takes seg dividing block_n, got "
+                         f"seg={seg} block_n={block_n}")
     if not 1 <= per_seg <= seg:
         raise ValueError(f"the CUDA fused_candidates kernel takes 1 ≤ per_seg "
                          f"≤ seg, got {per_seg}")
@@ -406,6 +422,12 @@ def _seg_candidates_kernel(queries, embs, penalty, block_n, tile_q, seg,
     width = -(-n // block_n) * (block_n // seg) * per_seg
     out_s = torch.empty((q, width), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, width), dtype=torch.int32, device=dev)
+    scr_s = scr_i = None
+    if plan["pieces"] > 1:  # the pieces' picks, merged by a second pass
+        scr_s = torch.empty(plan["scratch"] * per_seg, dtype=torch.float32,
+                            device=dev)
+        scr_i = torch.empty(plan["scratch"] * per_seg, dtype=torch.int32,
+                            device=dev)
     lib = _kernels.load("fused_candidates")
     with torch.cuda.device(dev):
         err = lib.fused_candidates(
@@ -413,8 +435,8 @@ def _seg_candidates_kernel(queries, embs, penalty, block_n, tile_q, seg,
             _kernels.ptr(embs), _kernels.ptr(penalty),
             0 if penalty is None else penalty.shape[0], q, n, d, block_n,
             seg, per_seg, plan["tile_q"], plan["stages"], plan["n_blocks"],
-            _kernels.ptr(out_s), _kernels.ptr(out_i),
-            _kernels.stream_of(embs))
+            _kernels.ptr(scr_s), _kernels.ptr(scr_i), _kernels.ptr(out_s),
+            _kernels.ptr(out_i), _kernels.stream_of(embs))
     _kernels.check(lib, err, "fused_candidates")
     _kernels.LAUNCHES["fused_candidates"] += 1
     return out_s, out_i
@@ -427,8 +449,8 @@ def seg_candidates(queries, embs, *, penalty=None, block_n: int = 2048,
     f32 takes `tile_q` rounded to 16- or 64-query tiles, bf16 the tile of
     `candidates_plan`): queries and embs both f32 or both bf16, any D (one
     that is not a multiple of 8 is padded with zero columns, a copy on the
-    card, as `fused_topk` does), seg a multiple of 32 dividing block_n with
-    lcm(seg, 128) ≤ 512, 1 ≤ per_seg ≤ seg; anything else raises."""
+    card, as `fused_topk` does), any seg dividing block_n, 1 ≤ per_seg ≤
+    seg; anything else raises."""
     if embs.is_cuda:
         return _seg_candidates_kernel(queries, embs, penalty, block_n, tile_q,
                                       seg, per_seg)

@@ -36,6 +36,10 @@ pytestmark = pytest.mark.cuda
 # backward's tile loops) and the twins in one block, both with f32
 # accumulators; bf16 rounds the outputs.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the forward's products keep f32 accuracy on the tensor cores (3xTF32,
+# ~2^-21 a product): within 1e-5 of the twin on unit Gaussian inputs, where
+# one TF32 product (~1e-3) is not
+FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -57,6 +61,15 @@ def dev():
     # the training shape, 16 ragged rows as a batch of pairs gives them
     (16, 16, 192, 64, torch.float32,
      [192, 0, 1, 63, 64, 65, 127, 128, 129, 191, 5, 17, 100, 150, 33, 2]),
+    # any head width (C-20): zero-filled columns past Dh, several output
+    # passes past 128; S off the 64-row tiles, lengths 0, 1 and S
+    *[(3, 2, s, dh, dtype, [s, 0, 1])
+      for dh in (8, 24, 40, 80, 96, 160, 200, 256, 320, 512)
+      for dtype in (torch.float32, torch.bfloat16)
+      for s in ((63, 513) if dh in (80, 320) else (65,))],
+    (2, 3, 1, 40, torch.float32, [1, 0]),
+    (2, 3, 100, 33, torch.float32, [100, 64]),   # not whole 16-byte chunks
+    (2, 3, 100, 12, torch.bfloat16, [7, 100]),
 ])
 def test_flash_kernel_matches_plain(dev, b, h, s, dh, dtype, lens):
     gen = torch.Generator(device=dev)
@@ -71,14 +84,17 @@ def test_flash_kernel_matches_plain(dev, b, h, s, dh, dtype, lens):
     ref, ref_lse = flash_attention_plain(q, k, v, lengths, return_lse=True)
     torch.cuda.synchronize()
     assert out.dtype == dtype and lse.shape == (b, h, s, 1)
-    tol = TOL[dtype]
+    tol = FWD_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
     if lens is not None and 0 in lens:
         z = lens.index(0)
         assert (out[z] == 0).all() and (lse[z] == -1e20).all()
-    # the no-lse variant is the same kernel
-    torch.testing.assert_close(flash_attention(q, k, v, lengths), out)
+    # the no-lse variant is the same kernel, and no atomics: the same bits
+    assert torch.equal(flash_attention(q, k, v, lengths), out)
+    out2, lse2 = flash_attention(q, k, v, lengths, return_lse=True)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+    assert _kernels.LAUNCHES["flash_fwd"] == before + 3
 
 
 @pytest.mark.parametrize("b,h,s,dh,dtype,lens", [
@@ -90,6 +106,11 @@ def test_flash_kernel_matches_plain(dev, b, h, s, dh, dtype, lens):
     (4, 8, 130, 128, torch.float32, [130, 64, 0, 1]),
     (2, 2, 96, 32, torch.float32, [96, 33]),
     (1, 1, 1, 64, torch.float32, [1]),
+    # other head widths go in padded with zero columns (C-20)
+    (3, 4, 150, 80, torch.float32, [150, 0, 77]),
+    (2, 2, 70, 320, torch.float32, [70, 1]),
+    (2, 2, 70, 200, torch.bfloat16, [70, 33]),
+    (2, 2, 40, 8, torch.float32, [40, 39]),
 ])
 def test_flash_bwd_kernels_match_plain(dev, b, h, s, dh, dtype, lens):
     gen = torch.Generator(device=dev)
@@ -182,9 +203,14 @@ def test_flash_fused_gradients_on_the_card(dev):
 
 
 def test_flash_kernel_rejects_unsupported(dev):
-    x = torch.zeros((1, 1, 8, 48), device=dev)
-    with pytest.raises(ValueError):
-        flash_attention(x, x, x)
+    for x in (torch.zeros((1, 1, 8, 513), device=dev),       # past 512
+              torch.zeros((1, 1, 8, 64), device=dev).half()):  # dtype
+        with pytest.raises(ValueError):
+            flash_attention(x, x, x)
+        with pytest.raises(ValueError):
+            flash_bwd_dq(x, x, x, torch.ones(1, device=dev),
+                         torch.zeros((1, 1, 8, 1), device=dev),
+                         torch.zeros((1, 1, 8, 1), device=dev), x, 1.0)
 
 
 def test_ell_kernel_rejects_mismatched_shapes(dev):
@@ -480,7 +506,8 @@ def test_launch_plans_match_the_kernels_shared_memory(dev, dtype):
             assert p["merge_smem_bytes"] == k4.fused_topk_merge_smem(
                 k, int(p["merge_in_smem"]))
         for seg, block_n in ((32, 2048), (128, 2048), (384, 768),
-                             (512, 8192)):
+                             (512, 8192), (8, 2048), (80, 1280),
+                             (1024, 2048), (1000, 2000)):
             p = candidates_plan(q, 1_000_448, dtype, block_n=block_n, seg=seg)
             assert p["smem_bytes"] == k5.fused_candidates_smem(
                 code, p["tile_q"], p["stages"], p["span"])
@@ -693,6 +720,18 @@ def assert_candidates_close(ks, ki, ps, pi, queries, embs, penalty):
     (5, 4000, 1024, 40, torch.bfloat16, "full", 512, 256, 4),
     (2, 300, 8, 20, torch.float32, None, 256, 64, 1),          # k > strip
     (64, 200_000, 1024, 40, torch.bfloat16, "full", 2048, 128, 2),
+    # every seg dividing block_n (C-19): narrower than a warp, spans cut
+    # short of a 128-row tile, segments cut into 512-row pieces and merged
+    (9, 5000, 64, 40, torch.float32, "full", 2048, 8, 3),
+    (9, 5000, 64, 40, torch.bfloat16, "short", 2048, 16, 2),
+    (5, 7000, 64, 40, torch.bfloat16, "full", 768, 24, 2),
+    (70, 9000, 64, 40, torch.bfloat16, None, 1536, 48, 2),
+    (3, 9000, 64, 40, torch.float32, "full", 1280, 80, 2),
+    (20, 9000, 64, 40, torch.bfloat16, "full", 1280, 80, 80),
+    (3, 20_000, 64, 40, torch.float32, "short", 1280, 640, 3),
+    (70, 30_000, 64, 40, torch.bfloat16, "full", 2048, 1024, 2),
+    (4, 30_000, 64, 100, torch.bfloat16, None, 2048, 2048, 600),
+    (2, 3000, 16, 40, torch.float32, None, 2000, 1000, 1),
 ])
 def test_fused_candidates_kernel_matches_plain(dev, q, n, d, k, dtype, pen,
                                                block_n, seg, per_seg):
@@ -794,9 +833,8 @@ def test_fused_candidates_kernel_rejects_what_it_does_not_take(dev):
 
     q = torch.zeros((2, 64), device=dev)
     e = torch.zeros((300, 64), device=dev)
-    for bad_q, bad_e, kw in ((q, e, {"seg": 48, "block_n": 96}),   # seg % 32
+    for bad_q, bad_e, kw in ((q, e, {"seg": 0, "block_n": 96}),
                              (q, e, {"seg": 64, "block_n": 1000}),  # divides
-                             (q, e, {"seg": 160, "block_n": 640}),  # span
                              (q, e, {"per_seg": 0}),
                              (q, e, {"seg": 32, "per_seg": 33,
                                      "block_n": 256}),

@@ -116,6 +116,24 @@ def test_twin_matches_jax_tie_free(q, n, d, k, block_n, seg, per_seg, dtype):
     assert_matches_jax(ts, ti, js, ji, queries, embs, dtype=dtype)
 
 
+@pytest.mark.parametrize("block_n,seg,per_seg", [
+    (2048, 8, 3), (2048, 16, 2), (768, 24, 2), (1536, 48, 2),
+    (1280, 80, 2), (1280, 640, 3), (2000, 1000, 1), (2048, 1024, 2),
+    (2048, 2048, 5),
+])
+def test_twin_matches_jax_at_any_seg(block_n, seg, per_seg):
+    """ROADMAP C-19: every seg that divides block_n, as JAX takes it:
+    segments narrower than a warp, spans the card cuts short of a 128-row
+    tile (lcm(seg, 128) > 512), and segments longer than 512 rows, which
+    the card cuts into pieces and merges."""
+    queries, embs, _ = _gaussian(seg + per_seg, 3, 5000, 16)
+    pen = np.zeros(5000, np.float32)
+    pen[::9] = -1e4
+    kw = dict(block_n=block_n, seg=seg, per_seg=per_seg)
+    ts, ti, js, ji = _run_both(queries, embs, 40, pen=pen, **kw)
+    assert_matches_jax(ts, ti, js, ji, queries, embs, pen=pen)
+
+
 def test_strip_wider_than_4096():
     """300,000 rows: a strip of 147·16·2 = 4,704 columns, which JAX cuts
     with `approx_max_k` before its exact `top_k`."""
@@ -174,6 +192,8 @@ def test_k_wider_than_the_strip():
     (20_000, 1024, 64, 3, 960),
     (300_000, 2048, 128, 2, 4704),   # approx_max_k's branch in JAX
     (300_000, 1024, 64, 1, 4688),
+    (20_000, 2048, 1024, 8, 160),    # segments the card cuts into pieces
+    (20_000, 2048, 8, 3, 7680),      # narrower than a warp
 ])
 def test_planted_ties_keep_jax_order(n, block_n, seg, per_seg, width):
     """Rows of halves under constant queries: every sum is exact in any

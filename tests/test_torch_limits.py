@@ -89,6 +89,32 @@ def test_candidates_plan_fits_the_card(q, seg, block_n, dtype):
         assert plan["tile_q"] in TC_TILES and 3 <= plan["stages"] <= 8
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("seg,block_n", [(8, 2048), (16, 2048), (24, 768),
+                                         (48, 1536), (80, 1280), (640, 1280),
+                                         (1000, 2000), (1024, 2048),
+                                         (2048, 2048)])
+@pytest.mark.parametrize("q", [1, 300])
+def test_candidates_plan_admits_every_seg(q, seg, block_n, dtype):
+    """ROADMAP C-19: K5 takes every seg that divides block_n. A span is at
+    most 512 rows: whole segments up to seg 512, else one 512-row piece of
+    a segment, whose picks a second pass merges from a scratch."""
+    n = 1_000_448
+    plan = candidates_plan(q, n, DTYPES[dtype], block_n=block_n, seg=seg)
+    span, pieces = plan["span"], plan["pieces"]
+    n_segs = -(-n // block_n) * (block_n // seg)
+    assert plan["smem_bytes"] <= SMEM_MAX and span <= 512
+    assert 1 <= plan["n_blocks"] <= min(plan["n_spans"], 65_535)
+    if seg <= 512:
+        assert pieces == 1 and span % seg == 0 and plan["scratch"] == 0
+        assert (plan["n_spans"] - 1) * span < n_segs * seg
+        assert plan["n_spans"] * span >= n_segs * seg
+    else:
+        assert span == 512 and (pieces - 1) * 512 < seg <= pieces * 512
+        assert plan["n_spans"] == n_segs * pieces
+        assert plan["scratch"] == q * n_segs * pieces
+
+
 def test_large_k_lists_leave_shared_memory_only_at_the_smallest_tile():
     """The bf16 query tile halves while its lists fit no longer; only at
     8 queries do they go to the candidate scratch."""
