@@ -103,8 +103,9 @@ N_CHUNKS, N_DOCS, N_QUESTIONS = 16_919, 1_829, 8
 # unit Gaussian inputs, where one TF32 product (~1e-3) would not. bf16
 # rounds the output.
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-# the backward kernels, f32 on the CUDA cores in 64-row tiles against the
-# twins' single block: far inside 1e-4
+# the backward kernels: f32 as 3xTF32 on the tensor cores (~2^-21 a
+# product) in tiles of 8 to 64 rows against the twins' single block; one
+# TF32 product would err ~1e-3 (tests/test_torch_flash_bwd_tf32.py)
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # K7: the kernel sums each dot in lane order and the twin in cuBLAS's,
 # both in f32; maxima are exact, so scores agree to f32 rounding
@@ -280,12 +281,15 @@ def flash_fwd_bound(q, lengths) -> dict:
 def flash_bwd_bounds(q, lengths) -> dict:
     """dq recomputes s and dp and forms dq (3 products), dk/dv recomputes
     s and dp and forms dv and dk (4), each over valid query rows × valid
-    keys, each with one exponential a pair (P again); both read q, dO, lse
-    and D, and k and v over the valid keys, and write dq, or dk and dv."""
-    b, h, s, dh = q.shape
+    keys, each with one exponential a pair (P again); both read q, dO,
+    lse and D over the valid query rows and k and v over the valid keys
+    (nothing past a row's length is needed), and write all of dq, or of
+    dk and dv."""
+    _, h, s, dh = q.shape
     pairs = h * float((lengths.clamp(0, s).double() ** 2).sum())
+    rows = h * float(lengths.clamp(0, s).sum())
     t = q.numel() * q.element_size()
-    reads = 2 * t + valid_kv_bytes(q, lengths) + 2 * b * h * s * 4
+    reads = rows * (4 * dh * q.element_size() + 2 * 4)
     per_flop, rate = attention_rate(q)
     return {"flash_bwd_dq": bound(per_flop * 6.0 * dh * pairs,
                                   reads + t, rate, exps=pairs),
@@ -643,9 +647,15 @@ def check_maxsim(dev, gen, colbert_len: int) -> dict:
 
 
 def check_flash_bwd(dev, gen) -> dict:
+    import ctypes
+
     import torch
 
-    from rag_dpo_tpu_torch.ops.flash_attention import flash_attention
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.ops.flash_attention import (
+        KERNEL_WIDTHS,
+        flash_attention,
+    )
     from rag_dpo_tpu_torch.ops.flash_attention_bwd import (
         _row_delta,
         flash_bwd_dkv,
@@ -684,8 +694,9 @@ def check_flash_bwd(dev, gen) -> dict:
         dq, (dk, dv) = flash_bwd_dq(*args), flash_bwd_dkv(*args)
         rq, (rk, rv) = flash_bwd_dq_plain(*args), flash_bwd_dkv_plain(*args)
         torch.cuda.synchronize()
-        # dq sums keys, dk/dv queries, in 64-row tiles; the twin in one
-        # cuBLAS product; both in f32, and bf16 rounds the outputs
+        # dq sums keys, dk/dv queries, in tiles of 8 to 64 rows on the
+        # tensor cores; the twin in one cuBLAS product; both in f32, and
+        # bf16 rounds the outputs
         tol = FLASH_BWD_TOL[str(dtype).split(".")[1]]
         errs, sizes = {}, {}
         for name, got, ref in (("dq", dq, rq), ("dk", dk, rk),
@@ -700,6 +711,9 @@ def check_flash_bwd(dev, gen) -> dict:
             z = lens.index(0)
             check(all(bool((x[z] == 0).all()) for x in (dq, dk, dv)),
                   "a row with no keys has a non-zero gradient")
+        again = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+        check(all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))),
+              f"flash_bwd gave other bits the second time at {q.shape}")
         ms = {"flash_bwd_dq": cuda_ms(lambda: flash_bwd_dq(*args)),
               "flash_bwd_dkv": cuda_ms(lambda: flash_bwd_dkv(*args))}
         plain = {"flash_bwd_dq": cuda_ms(lambda: flash_bwd_dq_plain(*args)),
@@ -739,8 +753,17 @@ def check_flash_bwd(dev, gen) -> dict:
                 f"{lib['library_ms']:.4f} ms (device "
                 f"{fmt_ms(lib['library_device_ms'])}, "
                 f"{lib['library_kernel']})")
+    lib = _kernels.load("flash_bwd_dq")
+    lib.flash_bwd_smem.restype = ctypes.c_longlong
+    lib.flash_bwd_smem.argtypes = [ctypes.c_int] * 3
+    smem = {name: {f"{t}_dh{w}": lib.flash_bwd_smem(dkv, d, w)
+                   for t, d in (("f32", 0), ("bf16", 1))
+                   for w in KERNEL_WIDTHS}
+            for dkv, name in enumerate(worst)}
+    log(f"flash_bwd shared memory a block: {smem}")
     shape = f"[16,16,{TRAIN_SEQ},64] f32"
-    return {name: {"max_abs_err": worst[name], **main[name], "shape": shape}
+    return {name: {"max_abs_err": worst[name], **main[name], "shape": shape,
+                   "smem_bytes": smem[name]}
             for name in worst}
 
 
@@ -2070,6 +2093,8 @@ def main() -> int:
         check(train["plain_on_cuda"][name] == 0, f"{name} ran plain")
 
     bwd_src = "rag_dpo_tpu_torch/csrc/flash_bwd.cu"
+    bwd_mma = ("mma.sync m16n8k8 tf32 (f32: 3xTF32) + m16n8k16 bf16 (bf16 "
+               "inputs; P and dS as hi + lo)")
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "rag_dpo_tpu_torch/csrc/flash_fwd.cu",
@@ -2087,10 +2112,12 @@ def main() -> int:
          **ell},
         {"name": "flash_bwd_dq", "route": "cuda", "source": bwd_src,
          "replaces": "rag_dpo_tpu/ops/flash_attention_bwd.py:81",
+         "instructions": bwd_mma,
          "launches": train["launches"]["flash_bwd_dq"],
          **flash_bwd["flash_bwd_dq"]},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": bwd_src,
          "replaces": "rag_dpo_tpu/ops/flash_attention_bwd.py:123",
+         "instructions": bwd_mma,
          "launches": train["launches"]["flash_bwd_dkv"],
          **flash_bwd["flash_bwd_dkv"]},
         {"name": "maxsim", "route": "cuda",

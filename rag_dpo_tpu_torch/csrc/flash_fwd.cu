@@ -20,8 +20,10 @@
 // true Dh are skipped.
 //
 // The products run on mma.sync (sm_80's warp-level tensor-core products,
-// which sm_90a keeps). f32 inputs keep f32 accuracy by 3xTF32: x = big +
-// small with big rounded to TF32 (on the ALU) and small = x - big exact;
+// which sm_90a keeps; the split, the products, cp.async and the tile loader
+// are in mma_sync.cuh, shared with flash_bwd.cu). f32 inputs keep f32
+// accuracy by 3xTF32: x = big + small with big rounded to TF32 (on the
+// ALU) and small = x - big exact;
 // each 8-deep product is big.small' + small.big' + big.big', three m16n8k8
 // TF32 products accumulated in f32. The tensor core reads the top 19 bits
 // of small (it ignores the low 13, as CUTLASS's 3xTF32 relies on), so a
@@ -55,10 +57,9 @@
 // the products. The result is deterministic: no atomics, the same bits run
 // to run.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -84,101 +85,6 @@ struct Cfg {
       sizeof(T) * (static_cast<size_t>(kBlockQ) * kLdQK +
                    static_cast<size_t>(kStages) * kBlockK * (kLdQK + kLdV));
 };
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, like astype
-}
-
-// x rounded to TF32 (10 mantissa bits; the tensor cores ignore the low 13),
-// to nearest with ties away from zero, on the ALU: adding half of the last
-// kept bit and masking (finite x only), two integer operations in place of
-// cvt.rna.tf32.f32.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small: big rounded to TF32, small = x - big exactly (its bits
-// the TF32 operand; the tensor core drops the low 13)
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = tf32(x);
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// a and b rounded to bf16 (to nearest, ties away), packed: a in the low half
-__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
-  return __byte_perm(__float_as_uint(a) + 0x8000u,
-                     __float_as_uint(b) + 0x8000u, 0x7632);
-}
-
-// not volatile: the compiler may interleave independent products
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool fill) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(fill ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [row0, row0 + ROWS) and columns [col0, col0 + COLS) of one head's
-// [S, Dh] matrix into a tile of row stride LD; zeros past S and Dh. `vec`:
-// Dh is a whole number of 16-byte chunks and the matrix 16-byte aligned, so
-// every chunk lies wholly inside or outside Dh and goes by cp.async;
-// otherwise element by element (synchronously).
-template <typename T, int ROWS, int COLS, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
-                                          int row0, int col0, int S, int Dh,
-                                          bool vec) {
-  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
-  if (vec) {
-    constexpr int kChunks = COLS / kPer;
-    for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-      const int r = c / kChunks, cc = (c - r * kChunks) * kPer;
-      const int row = row0 + r, col = col0 + cc;
-      const bool ok = row < S && col < Dh;
-      cp_async16(dst + r * LD + cc,
-                 ok ? src + static_cast<size_t>(row) * Dh + col : src, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < ROWS * COLS; e += kThreads) {
-      const int r = e / COLS, cc = e - r * COLS;
-      const int row = row0 + r, col = col0 + cc;
-      dst[r * LD + cc] = row < S && col < Dh
-                             ? src[static_cast<size_t>(row) * Dh + col]
-                             : from_f32<T>(0.f);
-    }
-  }
-}
 
 // The warp's 16 Q rows of one m-tile as A fragments, a k-step of 8 columns
 // at a time, read from shared memory at each use. f32: the TF32 fragments
@@ -380,7 +286,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = q0 + warp * 16 * MT;  // the warp's first query row
   const bool live = r0 < S;            // warp-uniform: any of its rows in S
 
-  load_tile<T, BQ, DHP, C::kLdQK>(qs, q + base, q0, 0, S, Dh, vec);
+  load_tile<kThreads, T, BQ, DHP, C::kLdQK>(qs, q + base, q0, 0, S, Dh, vec);
   cp_async_commit();
 
   for (int col0 = 0; col0 < Dh; col0 += DV) {
@@ -399,8 +305,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     if (n_ktiles > 0) {
-      load_tile<T, BK, DHP, C::kLdQK>(ks, k + base, 0, 0, S, Dh, vec);
-      load_tile<T, BK, DV, C::kLdV>(vs, v + base, 0, col0, S, Dh, vec);
+      load_tile<kThreads, T, BK, DHP, C::kLdQK>(ks, k + base, 0, 0, S, Dh, vec);
+      load_tile<kThreads, T, BK, DV, C::kLdV>(vs, v + base, 0, col0, S, Dh, vec);
       cp_async_commit();
     }
     for (int kt = 0; kt < n_ktiles; ++kt) {
@@ -409,9 +315,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int ahead = kt + kStages - 1;
       if (ahead < n_ktiles) {
         const int nslot = ahead % kStages;
-        load_tile<T, BK, DHP, C::kLdQK>(ks + nslot * BK * C::kLdQK, k + base,
+        load_tile<kThreads, T, BK, DHP, C::kLdQK>(ks + nslot * BK * C::kLdQK, k + base,
                                         ahead * BK, 0, S, Dh, vec);
-        load_tile<T, BK, DV, C::kLdV>(vs + nslot * BK * C::kLdV, v + base,
+        load_tile<kThreads, T, BK, DV, C::kLdV>(vs + nslot * BK * C::kLdV, v + base,
                                       ahead * BK, col0, S, Dh, vec);
       }
       cp_async_commit();  // (an empty group past the last tile)

@@ -1,7 +1,7 @@
 """Time the top-k selectors K4 (`ops.topk.fused_topk`), K5
-(`ops.topk.seg_candidates`) and K3 (`ops.sparse.ell_topk`), and the flash
-forward K1 (`ops.flash_attention.flash_attention`), of one checkout on one
-NVIDIA card.
+(`ops.topk.seg_candidates`) and K3 (`ops.sparse.ell_topk`), the flash
+forward K1 (`ops.flash_attention.flash_attention`) and the flash backward
+K8 and K9 (`ops.flash_attention_bwd`), of one checkout on one NVIDIA card.
 
     python rag_dpo_tpu_torch/evals/bench_selectors.py [--root DIR] [--label L]
 
@@ -18,9 +18,12 @@ a 4,000-term vocabulary, 4 queries of 20 terms padded to 32, k 40. K1 is
 timed at the training shape [16,16,192,64] and at the ingest batch
 [64,16,512,64], f32 unit Gaussian q, k, v from seed 5 with ragged lengths
 (random in 1 ... S, the first S, as `chip_smoke.py` times them), beside
-`scaled_dot_product_attention` with the same key mask. Each time is CUDA
-events over 20 calls after 3 warm-up calls. Prints the card's name and
-power limit, then one JSON line.
+`scaled_dot_product_attention` with the same key mask, and the flash
+backward K8 (`flash_bwd_dq`) and K9 (`flash_bwd_dkv`) on the same inputs
+(with a unit Gaussian upstream gradient) beside the backward of that SDPA
+call (dq, dk and dv in one call). Each time is CUDA events over 20 calls
+after 3 warm-up calls. Prints the card's name and power limit, then one
+JSON line.
 """
 
 from __future__ import annotations
@@ -49,6 +52,11 @@ def main() -> int:
         return 1
     from rag_dpo_tpu_torch.ops import _kernels
     from rag_dpo_tpu_torch.ops.flash_attention import flash_attention
+    from rag_dpo_tpu_torch.ops.flash_attention_bwd import (
+        _row_delta,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
     from rag_dpo_tpu_torch.ops.sparse import ell_topk
     from rag_dpo_tpu_torch.ops.topk import fused_topk, seg_candidates
 
@@ -129,10 +137,19 @@ def main() -> int:
         lengths[0] = s
         mask = (torch.arange(s, device=dev)[None, :]
                 < lengths[:, None])[:, None, None, :]
+        g = torch.randn((b, h, s, dh), generator=gen, device=dev)
+        o, lse = flash_attention(q, k, v, lengths, return_lse=True)
+        args = (q, k, v, lengths, lse, _row_delta(o, g), g, dh ** -0.5)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
         out[f"flash_{b}x{h}x{s}x{dh}"] = {
             "k1_ms": ms(lambda: flash_attention(q, k, v, lengths)),
             "library_ms": ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask))}
+                q, k, v, attn_mask=mask)),
+            "k8_ms": ms(lambda: flash_bwd_dq(*args)),
+            "k9_ms": ms(lambda: flash_bwd_dkv(*args)),
+            "library_bwd_ms": ms(lambda: torch.autograd.grad(
+                sdpa, (qg, kg, vg), g, retain_graph=True))}
     print(json.dumps(out), flush=True)
     return 0
 

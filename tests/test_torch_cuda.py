@@ -32,8 +32,8 @@ from rag_dpo_tpu_torch.ops.sparse import ell_topk, ell_topk_plain
 
 pytestmark = pytest.mark.cuda
 
-# f32: the kernels sum in 64-row tiles (the forward's online softmax, the
-# backward's tile loops) and the twins in one block, both with f32
+# f32: the backward kernels sum in tiles of 8 to 64 rows on the tensor cores
+# as 3xTF32 (~2^-21 a product) and the twins in one block, both with f32
 # accumulators; bf16 rounds the outputs.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the forward's products keep f32 accuracy on the tensor cores (3xTF32,
@@ -111,6 +111,23 @@ def test_flash_kernel_matches_plain(dev, b, h, s, dh, dtype, lens):
     (2, 2, 70, 320, torch.float32, [70, 1]),
     (2, 2, 70, 200, torch.bfloat16, [70, 33]),
     (2, 2, 40, 8, torch.float32, [40, 39]),
+    # the edges of the 64-row tiles (and of the 16- and 8-row walked tiles
+    # of the wide instances), each batch with a row whose keys are all
+    # masked (length 0)
+    *[(2, 2, s, dh, torch.float32, [s, 0])
+      for s in (1, 63, 65, 127, 129, 193, 513) for dh in (64, 128)],
+    (3, 2, 129, 320, torch.float32, [129, 0, 64]),
+    (3, 2, 193, 256, torch.bfloat16, [193, 0, 100]),
+    # bf16 at the widths the encoders use
+    (4, 4, 192, 64, torch.bfloat16, [192, 0, 63, 65]),
+    (4, 4, 192, 128, torch.bfloat16, [192, 0, 127, 129]),
+    # the other instances, each with its own walked rows and column passes:
+    # f32 at width 256, bf16 at 16, 32 and 512 (Dh 320 padded)
+    (3, 2, 129, 256, torch.float32, [129, 0, 64]),
+    (3, 2, 70, 200, torch.float32, [70, 0, 33]),
+    (3, 2, 65, 16, torch.bfloat16, [65, 0, 33]),
+    (3, 2, 97, 32, torch.bfloat16, [97, 0, 50]),
+    (3, 2, 129, 320, torch.bfloat16, [129, 0, 64]),
 ])
 def test_flash_bwd_kernels_match_plain(dev, b, h, s, dh, dtype, lens):
     gen = torch.Generator(device=dev)
@@ -142,6 +159,25 @@ def test_flash_bwd_kernels_match_plain(dev, b, h, s, dh, dtype, lens):
                                                   g)):
         torch.testing.assert_close(got.float(), ref.float(), atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.parametrize("dh,dtype", [(64, torch.float32),
+                                      (64, torch.bfloat16),
+                                      (320, torch.float32)])
+def test_flash_bwd_kernels_give_the_same_bits_twice(dev, dh, dtype):
+    """No atomics: each output element is summed in one fixed order."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(dh)
+    q, k, v, g = (torch.randn((16, 4, 192, dh), generator=gen, device=dev)
+                  .to(dtype) for _ in range(4))
+    lengths = torch.randint(1, 193, (16,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    out, lse = flash_attention(q, k, v, lengths, return_lse=True)
+    args = (q, k, v, lengths, lse, _row_delta(out, g), g, dh ** -0.5)
+    first = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+    second = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_encoder_backward_on_the_card_matches_the_cpu(dev):
