@@ -27,7 +27,13 @@ Phases, in order; any failure exits non-zero before the result lines:
    (ROADMAP C-17: K4 and K5 at Q 7 and 300, D 1000 and 1536, k 512 and
    1024, bf16 and f32; K6 at D 1536; K3 with 100 query terms and at k
    2048; C-19: K5 at seg 8, 80, 1000 and 1024), each held
-   to its twin; then flash attention's dq and dk/dv kernels at the
+   to its twin; the int8 sweep floor (K10 and K11) first through its own
+   path, `evals/bench_int8_matmul.run` at
+   benchmarks/bench_pallas_int8_matmul.py's recipe (1,000,000 × 1024
+   uniform int8 rows, Q 64, 2048-row blocks), then bit for bit against
+   its twin, the same bits twice, beside the library strip
+   (`torch._int_mm` + strided `amax`), and with K6 at Q 64 on the scale
+   rows; then flash attention's dq and dk/dv kernels at the
    training shape and others (Dh 80 and 320 too); timed with CUDA events
    and the profiler, beside each kernel's bound and, where one PyTorch
    call computes the same function, that call's time and device time;
@@ -42,7 +48,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    `search_sparse(k=40)` (the postings engine) + `rrf_fuse` to 10 at
    batches 1, 64 and 256; dense recall@10 of the head of the int8 top-40
    against an exact f32 index over the same rows (K4) must be ≥ 0.99;
-   postings recall@40 against K3 over the same ELL image is printed;
+   postings recall@40 against K3 over the same ELL image is printed; then
+   the same checkpoint loaded again with `device_refine` (the on-card
+   int8 × int8 search of `ops.quantize`): `search_dense(k=40)` at the
+   same batches with `sweep_block_rows` 0 and 131,072, its dense recall@10
+   (recorded), peak device memory ≤ 40 GB, no twin; its ids at batch 64
+   on 50,000 of the rows must equal the CPU's;
 5. ingest — 16,919 chunk texts over 1,829 doc keys, made from `--seed` by
    recombining sentences of the synthetic corpus, encoded by a full-width
    BGE-M3 (24 layers, 1024 hidden, random weights) through the port's
@@ -73,8 +84,9 @@ Phases, in order; any failure exits non-zero before the result lines:
 The second-to-last line is a JSON object with each kernel's launches in
 the phase of the main path that runs it (serve for the ELL kernel, MaxSim
 serve for K7, train for the flash kernels, scale for K4 and K6, and for
-K5 its own path in the kernel phase: no other path calls it, as in the
-JAX package), its max abs error against the twin, its times, its bound
+K5, K10 and K11 their own paths in the kernel phase: no other path calls
+them, as in the JAX package), its max abs error against the twin, its
+times, its bound
 and the library call's time; the last line is `{"ok": true, "device":
 {...}}`. There is no CPU path.
 """
@@ -130,9 +142,14 @@ TRAIN_PAIRS, TRAIN_SEQ, TIMED_STEPS = 16, 192, 8
 # TF32 tensor cores' dense rate (f32 attention at f32 accuracy takes three
 # TF32 products, 3xTF32, as the bound's basis), the bf16 tensor cores' rate
 # (the peak for bf16 inputs; bf16 × bf16 and bf16 × int8 products are
-# exact in f32), and HBM3 bytes/s
-F32_FLOPS, TF32_FLOPS, BF16_FLOPS, HBM_BYTES_PER_S = (67e12, 495e12, 989e12,
-                                                      3.35e12)
+# exact in f32), the int8 tensor cores' rate, and HBM3 bytes/s
+F32_FLOPS, TF32_FLOPS, BF16_FLOPS, INT8_OPS, HBM_BYTES_PER_S = (
+    67e12, 495e12, 989e12, 1979e12, 3.35e12)
+# the store's device_refine at scale: sweep_block_rows 0 (one sweep, or
+# blocks past the 512 Mi score budget) and forced 131,072-row blocks; the
+# ids are held to the CPU's on a slice of the rows, with blocks small enough
+# to scan there
+REFINE_BLOCKS, REFINE_SLICE, REFINE_SLICE_BLOCK = (0, 131_072), 50_000, 16_384
 # the special-function units: 16 exponentials a clock on each SM (Hopper's
 # SFU rate), at the card's maximum SM clock (`sm_clock_hz`)
 SFU_PER_CLOCK, H100_SMS = 16, 132
@@ -1140,6 +1157,116 @@ def check_pooled(dev, gen) -> dict:
                      "block 8192, group 64", **out}
 
 
+def int8_floor_bound(q: int, n: int, d: int, block: int,
+                     rate: float) -> dict:
+    """K10/K11: 2·Q·rows·D operations at `rate` (bf16 for K10's widened
+    operands, int8 for K11) over the whole blocks' rows; those rows and the
+    queries read once, the [Q, blocks·128] f32 strip written once."""
+    nb = n // block
+    rows = nb * block
+    return bound(2.0 * q * rows * d, rows * d + q * d + 4.0 * q * nb * 128,
+                 rate)
+
+
+def check_int8_floor(dev, seed: int) -> dict:
+    """K10 and K11 at benchmarks/bench_pallas_int8_matmul.py's recipe
+    (1,000,000 × 1024 uniform int8 rows made on the card, Q 64, 2048-row
+    blocks): first their path, `evals/bench_int8_matmul.run` with the
+    counts from 0 (its strips must equal the library product's); then, on
+    rows of their own (seed + 7), each against the twin bit for bit, the
+    same bits twice, and the times of the kernel, the twin and the library
+    strip (`torch._int_mm` + strided `amax`), beside the bound; then K10,
+    K11 and K6 at Q 64 side by side on the scale phase's quantized rows
+    (`quantize_rows(scale_rows(...))`, what K6 sweeps)."""
+    import torch
+
+    from rag_dpo_tpu_torch.evals import bench_int8_matmul as bench
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.ops.int8_matmul import (
+        int8_block_max,
+        int8_block_max_plain,
+    )
+    from rag_dpo_tpu_torch.ops.pooled import pooled_group_max
+    from rag_dpo_tpu_torch.ops.quantize import quantize_rows
+
+    # benchmarks/bench_pallas_int8_matmul.py:31-33's recipe
+    n, d, nq, block = (bench.RECIPE[k] for k in ("n", "d", "q", "block"))
+    _kernels.reset_counts()
+    line = bench.run(seed=seed, device=dev)
+    torch.cuda.synchronize()
+    launches = {name: _kernels.LAUNCHES[name] for name in bench.KERNELS}
+    check(all(launches.values()) and not any(_kernels.PLAIN_ON_CUDA.values()),
+          f"int8 floor path: launches {launches}, plain "
+          f"{_kernels.PLAIN_ON_CUDA}")
+    log(f"int8 floor path: evals/bench_int8_matmul.run launched {launches}, "
+        f"no twin: {json.dumps(line)}")
+
+    q_i8, e_i8 = bench.make_inputs(n, d, nq, seed + 7, dev)
+    lib_ms = cuda_ms(lambda: bench.library_block_max(q_i8, e_i8, block),
+                     iters=10)
+    out = {}
+    for name, upcast in bench.KERNELS.items():
+        def kernel(q=q_i8, e=e_i8):
+            return int8_block_max(q, e, block=block, upcast=upcast)
+
+        got = kernel()
+        want = int8_block_max_plain(q_i8, e_i8, block=block, upcast=upcast)
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"{name}: differs from the twin by "
+              f"{err}")
+        check(torch.equal(kernel(), got), f"{name}: two runs differ")
+        del want
+        ms = cuda_ms(kernel, iters=10)
+        dms = device_ms(kernel, iters=5, launches=1)
+        plain_ms = cuda_ms(lambda: int8_block_max_plain(
+            q_i8, e_i8, block=block, upcast=upcast), iters=3, warmup=1)
+        bnd = int8_floor_bound(nq, n, d, block,
+                               BF16_FLOPS if upcast == "bf16" else INT8_OPS)
+        gbps = n * d / ms / 1e6
+        log(f"{name} [{nq}x{d}] x [{n}x{d}] int8, block {block} (strip "
+            f"{list(got.shape)}): bit for bit against the twin, the same "
+            f"bits twice; kernel_ms={ms:.4f} (device {fmt_ms(dms)}) = "
+            f"{gbps:.0f} GB/s (N·D / time); plain_ms={plain_ms:.4f}; "
+            f"library (torch._int_mm + amax) {lib_ms:.4f} ms; bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) = "
+            f"{bnd['bound_ms'] / ms:.3f} of the kernel's time")
+        out[name] = {"launches": launches[name], "max_abs_err": err,
+                     "ms": ms, "device_ms": dms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "gbps": gbps,
+                     "entry_ms": line[f"{name}_ms"],
+                     "entry_library_ms": line["library_int8_mm_ms"], **bnd,
+                     "library_calls": "torch._int_mm(q, e.T) then amax over "
+                                      "the strided [Q, blocks, block/128, "
+                                      "128] view",
+                     "shape": f"[{nq}x{d}] x [{n}x{d}] int8, block {block}"}
+    del q_i8, e_i8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 6)
+    rows, pen = scale_rows(dev, gen)
+    e_i8, e_scale = quantize_rows(rows)
+    del rows
+    qf = unit_queries(dev, gen, nq)
+    q_i8 = quantize_rows(qf)[0]
+    qb = qf.to(torch.bfloat16)
+    side = {name: cuda_ms(lambda up=upcast: int8_block_max(
+                q_i8, e_i8, block=block, upcast=up), iters=10)
+            for name, upcast in bench.KERNELS.items()}
+    side["library_int8_mm"] = cuda_ms(
+        lambda: bench.library_block_max(q_i8, e_i8, block), iters=10)
+    side["pooled_max"] = cuda_ms(
+        lambda: pooled_group_max(qb, e_i8, e_scale, pen), iters=10)
+    log(f"int8 sweep side by side on the scale rows ([{e_i8.shape[0]}x{d}] "
+        f"int8, Q {nq}): " + ", ".join(f"{k} {v:.4f} ms"
+                                       for k, v in side.items())
+        + f"; K6 / K11 = {side['pooled_max'] / side['int8_block_max_i8']:.2f}")
+    for name in bench.KERNELS:
+        out[name]["scale_rows_side_by_side_ms"] = side
+    return out
+
+
 # ROADMAP C-17 and C-19: shapes past the kernels' former limits, each
 # held to its twin (unit queries, as the store sends them): K4 (Q, D, k,
 # dtype), K5 (Q, D, dtype; top-512 of its strip), K6 at D 1536, K3 with
@@ -1408,6 +1535,9 @@ def run_scale(seed: int, dev) -> dict:
         t0 = time.perf_counter()
         index = DeviceIndex.load(tmp, device=dev)
         load_s = time.perf_counter() - t0
+        # the same checkpoint a second time, searched with device_refine
+        refine = DeviceIndex.load(tmp, device=dev)
+    refine.config = dataclasses.replace(refine.config, device_refine=True)
     check(index.n_rows == SCALE_N and index.config.quantize_int8,
           f"reloaded {index.n_rows} rows, {index.config}")
     t0 = time.perf_counter()
@@ -1495,6 +1625,10 @@ def run_scale(seed: int, dev) -> dict:
     plain = dict(_kernels.PLAIN_ON_CUDA)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del exact_index
+    device_refine = run_device_refine(refine, dense, ids,
+                                      {nq: b[0] for nq, b in batches.items()},
+                                      ei, reps, dev)
+    del refine
     # postings recall@40 against the ELL kernel over the same image
     qt16 = torch.from_numpy(qt256[:16]).to(dev)
     qw16 = torch.from_numpy(qw256[:16]).to(dev)
@@ -1519,7 +1653,87 @@ def run_scale(seed: int, dev) -> dict:
             "build_s": build_s, "save_s": save_s, "load_s": load_s,
             "image_s": image_s, "first_search_s": first_s,
             "checkpoint_gb": ckpt_gb,
-            "batch256_device_busy_share": busy, "batch256_device_parts": parts}
+            "batch256_device_busy_share": busy, "batch256_device_parts": parts,
+            "device_refine": device_refine}
+
+
+def run_device_refine(index, dense, ids, queries: dict, exact_ids, reps: dict,
+                      dev) -> dict:
+    """The scale phase's checkpoint loaded a second time with
+    `device_refine` (the reference's on-card int8 × int8 search): for each
+    of REFINE_BLOCKS, `search_dense(k=40)` alone at batches 1, 64 and 256
+    (p50 over `reps` after 1 warm-up), dense recall@10 of the head of the
+    top-40 against the exact f32 top-10 (`exact_ids`, K4; recorded, not
+    gated: the refine scores the dequantized rows) and the peak device
+    memory (≤ 40 GB); no twin may run. Then, held: on the first
+    REFINE_SLICE rows, one sweep and REFINE_SLICE_BLOCK-row blocks, the
+    same search on the CPU at batch 64 gives scores within NEAR_TIE and the
+    same ids."""
+    import numpy as np
+    import torch
+
+    from rag_dpo_tpu_torch.index import DeviceIndex
+    from rag_dpo_tpu_torch.ops import _kernels
+
+    t_start = time.perf_counter()
+    out = {}
+    _kernels.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for blk in REFINE_BLOCKS:
+        index.config = dataclasses.replace(index.config, sweep_block_rows=blk)
+        timed = {}
+        for nq, q in queries.items():
+            index.search_dense(q, 40)  # warm-up; the first builds the image
+            times = []
+            for _ in range(reps[nq]):
+                t0 = time.perf_counter()
+                index.search_dense(q, 40)    # ids come back to the host
+                times.append(time.perf_counter() - t0)
+            p50 = float(np.median(times))
+            timed[nq] = {"p50_ms": p50 * 1e3, "queries_per_s": nq / p50}
+        di = index.search_dense(queries[SCALE_BATCHES[-1]], 40)[1]
+        recall = float(np.mean([len(set(a[:10]) & set(b)) / 10
+                                for a, b in zip(di, exact_ids)]))
+        route = ("blockscan" if blk and blk < index.device_image()["n_pad"]
+                 else "selfrefined (Q·n_pad within the budget at every "
+                      "batch)")
+        log(f"scale, device_refine, sweep_block_rows {blk} ({route}): "
+            + "; ".join(f"batch {nq} p50 {t['p50_ms']:.2f} ms = "
+                        f"{t['queries_per_s']:.1f} queries/s"
+                        for nq, t in timed.items())
+            + f"; dense recall@10 vs exact {recall:.4f}")
+        out[f"sweep_block_rows_{blk}"] = {
+            "route": route, "timed": timed,
+            "batch1_p50_ms": timed[1]["p50_ms"],
+            "batch256_queries_per_s": timed[256]["queries_per_s"],
+            "dense_recall_at_10": recall}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain = dict(_kernels.PLAIN_ON_CUDA)
+    check(not any(plain.values()), f"a twin ran under device_refine: {plain}")
+    check(peak_gb <= 40.0, f"device_refine peak device memory {peak_gb} GB")
+
+    q64 = queries[64]
+    same = {}
+    for blk in (0, REFINE_SLICE_BLOCK):
+        cfg = dataclasses.replace(index.config, sweep_block_rows=blk)
+        got = {}
+        for device in ("cpu", dev):
+            part = DeviceIndex(cfg, device=device)
+            part.add(ids[:REFINE_SLICE], dense[:REFINE_SLICE])
+            got[str(device)] = part.search_dense(q64, 40)
+        (cs, ci), (gs, gi) = got["cpu"], got[str(dev)]
+        label = f"device_refine sweep_block_rows {blk}"
+        gap = float(np.abs(gs - cs).max())
+        check(gap <= NEAR_TIE, f"{label}: scores differ from the CPU's by "
+              f"{gap}")
+        differ = int((gi != ci).sum())
+        check(not differ, f"{label}: {differ} ids differ from the CPU's")
+        same[f"sweep_block_rows_{blk}"] = {"max_score_gap": gap}
+    log(f"scale, device_refine: peak device memory {peak_gb:.2f} GB; no twin; "
+        f"ids at batch 64 on {REFINE_SLICE} rows equal the CPU's ({same}); "
+        f"{time.perf_counter() - t_start:.1f} s after the second load")
+    return {**out, "peak_device_gb": peak_gb, "slice_vs_cpu": same}
 
 
 # ------------------------------------------------------------- corpus
@@ -2052,6 +2266,11 @@ def main() -> int:
     k6 = check_pooled(dev, gen)
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    floor = check_int8_floor(dev, args.seed)
+    log(f"int8 floor phase: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
     limits = check_former_limits(dev, gen)
     # before the serve phases: after them, the profiler lost the backward
     # kernels' events (device time not measured)
@@ -2144,6 +2363,14 @@ def main() -> int:
          "source": "rag_dpo_tpu_torch/csrc/seg_candidates.cu",
          "replaces": "rag_dpo_tpu/ops/topk.py:136",
          **k5},
+        *({"name": name, "route": "cuda",
+           "source": "rag_dpo_tpu_torch/csrc/int8_block_max.cu",
+           "replaces": f"benchmarks/bench_pallas_int8_matmul.py:{line}",
+           "instructions": instructions, **floor[name]}
+          for name, line, instructions in (
+              ("int8_block_max_bf16", 38,
+               "mma.sync m16n8k16 bf16 (int8 widened in registers)"),
+              ("int8_block_max_i8", 51, "mma.sync m16n8k32 s8"))),
     ]
     maxsim = path["maxsim"]
     log(json.dumps({"kernels": kernels, "build_s": build_s,

@@ -22,14 +22,19 @@ Search engines:
   4k groups, then an exact f32 re-score against the host f16 rows. The
   reference ranks its candidates by int8 × int8 (ROADMAP C-14); both are
   approximate by design, and `exact` does not apply;
+* dense, int8 with `device_refine`: the reference's on-card search, int8 ×
+  int8 as it ranks (`ops.quantize`): the sweep's best 4k, re-scored
+  against the dequantized int8 rows on the card, over the whole image at
+  once or, past a [Q, n_pad] budget of 512 Mi scores (or with
+  `sweep_block_rows` set), in row blocks;
 * sparse: the ELL kernel (`ops.sparse.ell_topk`, K3) over the whole padded
   image for unfiltered queries and the plain full scorer for filtered
   ones, below `postings_threshold` rows and Q·T ≤ 128; above either, the
   impact-ordered postings engine (`ops.postings`), filtered queries
   through an unfiltered overfetch and a host filter.
 ColBERT rows stay on the host in f16 (`colbert_vectors`, for the MaxSim
-rerank). The on-card refine of int8 candidates (`device_refine`) and mesh
-sharding are later slices of the port (ROADMAP) and raise here.
+rerank). Mesh sharding (the reference's sharded branches) is a later slice
+of the port (ROADMAP item 9).
 """
 
 from __future__ import annotations
@@ -46,13 +51,19 @@ from ..ops import approx_topk, blocked_topk, default_device
 from ..ops import pooled, topk
 from ..ops.pooled import pooled_group_max
 from ..ops.postings import PostingsIndex, postings_candidates_topk
-from ..ops.quantize import quantize_rows
+from ..ops.quantize import (
+    approx_topk_int8_blockscan,
+    approx_topk_int8_selfrefined,
+    quantize_rows,
+)
 from ..ops.sparse import ell_scores, ell_topk
 from ..ops.topk import _sort_desc, pad_columns
 from .metadata import MetadataStore, compile_filter
 
 NEG_INF = -1e30
-_NOT_PORTED = "not ported yet (ROADMAP, port queue item {})"
+# device_refine's live [Q, n_pad] score budget before the sweep goes by row
+# blocks: the reference's (store.py:641-643)
+SCORE_BUDGET = 512 * 1024 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,16 +82,19 @@ class IndexConfig:
     # int8 dense storage: int8 rows + f32 scales on the device, candidates
     # refined exactly against the host f16 rows
     quantize_int8: bool = False
-    device_refine: bool = False   # refine on the card: not ported (raises)
+    # refine the int8 sweep's candidates on the card against the dequantized
+    # int8 rows instead of on the host against the f16 rows: one pass on the
+    # card, no candidate round trip; scores carry the rows' int8
+    # quantization instead of f16
+    device_refine: bool = False
+    # device_refine's sweep blocking: 0 = by rows of `SCORE_BUDGET // Q`
+    # (at least `row_block`) once [Q, n_pad] exceeds the budget; > 0 forces
+    # that block size
     sweep_block_rows: int = 0
 
 
 class DeviceIndex:
     def __init__(self, config: IndexConfig, device=None):
-        if config.quantize_int8 and config.device_refine:
-            raise NotImplementedError(
-                "device_refine (the int8 refine on the card) is "
-                + _NOT_PORTED.format(11))
         self.config = config
         self.device = default_device(device)
         self.ids: list[str] = []
@@ -348,10 +362,13 @@ class DeviceIndex:
     def _int8_dense(self, queries, k: int, mask, dev):
         """Int8 search; filters fold into the penalty. The pooled sweep
         (K6) keeps the max of every strided group of 64 rows; the best
-        min(4k, groups) groups are re-scored exactly on the host."""
+        min(4k, groups) groups are re-scored exactly on the host. With
+        `device_refine`, the reference's on-card int8 × int8 search."""
         qf32 = np.asarray(queries, np.float32)
-        q = self._queries(qf32, torch.bfloat16)
         penalty = self._combined_penalty(mask, dev)
+        if self.config.device_refine:
+            return self._device_refine(qf32, k, penalty, dev)
+        q = self._queries(qf32, torch.bfloat16)
         pv, pi = pooled_group_max(q, dev["embs_i8"], dev["embs_scale"],
                                   penalty)
         kk = min(4 * k, pv.shape[1])
@@ -360,6 +377,30 @@ class DeviceIndex:
         i = _host(torch.gather(pi, 1, pos[:, :kk]))
         ok = (i >= 0) & (i < self.n_rows) & (s > -5e3)
         return self._host_refine(qf32, s, i, ok, k)
+
+    def _device_refine(self, qf32, k: int, penalty, dev):
+        """The sweep and the dequant refine on the card, 4× oversampled:
+        over the whole image at once, or in row blocks when forced by
+        `sweep_block_rows` or when [Q, n_pad] scores would pass
+        `SCORE_BUDGET` (blocks of budget // Q rows, at least `row_block`)."""
+        cfg = self.config
+        q = self._queries(qf32, torch.float32)
+        q_n, n_pad = q.shape[0], dev["n_pad"]
+        if cfg.sweep_block_rows:
+            blk = cfg.sweep_block_rows
+        elif q_n * n_pad > SCORE_BUDGET:
+            blk = max(cfg.row_block, SCORE_BUDGET // q_n)
+        else:
+            blk = 0
+        if blk and blk < n_pad:
+            s, i = approx_topk_int8_blockscan(
+                q, dev["embs_i8"], dev["embs_scale"], k, oversample=4,
+                block_rows=blk, penalty=penalty)
+        else:
+            s, i = approx_topk_int8_selfrefined(
+                q, dev["embs_i8"], dev["embs_scale"], k, oversample=4,
+                penalty=penalty)
+        return self._finish(s, i, k)
 
     def _host_refine(self, qf32, s, i, ok, k: int):
         """Exact f32 re-score of device-selected candidates against the

@@ -37,7 +37,9 @@ BUILD_DIR = PKG_DIR / "build"
 KERNELS = {"flash_fwd": "flash_fwd", "ell_topk": "ell_topk",
            "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
            "maxsim": "maxsim", "fused_topk": "fused_topk",
-           "pooled_max": "pooled", "fused_candidates": "seg_candidates"}
+           "pooled_max": "pooled", "fused_candidates": "seg_candidates",
+           "int8_block_max_bf16": "int8_block_max",
+           "int8_block_max_i8": "int8_block_max"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -73,6 +75,9 @@ SIGNATURES = {
     # dtype, q, e, penalty, P, Q, N, D, block_n, seg, per_seg, tile_q,
     # stages, n_blocks, scr_s, scr_i, out_s, out_i, stream
     "fused_candidates": [_I, _P, _P, _P, *[_I] * 10, _P, _P, _P, _P, _P],
+    # q_i8, e_i8, Q, N, D, block, out, stream
+    "int8_block_max_bf16": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "int8_block_max_i8": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,115 @@
+"""The int8 sweep floor: int8 queries against int8 rows, reduced per block of
+rows to the max of its 128-wide strided column groups (K10, K11).
+
+Port of the kernel half of `benchmarks/bench_pallas_int8_matmul.py`, where
+the JAX package measured the least an int8 sweep could cost: read an int8
+row block, take its product with resident queries, write a small strip.
+
+    out[q, j·128 + c] = max over i < block/128 of q · e[j·block + i·128 + c]
+
+for j < N // block. The grid covers whole blocks only, as the TPU kernel's
+(`grid = (N // BLOCK,)`): rows past the last whole block are not read, and
+not padded in. At the recipe (N 1,000,000, D 1024, Q 64, block 2048) that is
+the last 576 rows, and the strip is [64, 62,464].
+
+`upcast="bf16"` is K10 (`kernel_bf16`: both operands widened to bf16, the
+products summed in f32), `upcast="int8"` is K11 (`kernel_int8`: int8 × int8
+summed in int32, the max cast to f32). Every int8 product is exact in bf16,
+and every partial sum stays below 2^24 while D ≤ 1024 (1024 · 128² = 2^24),
+so at D ≤ 1024 the two give the same bits. The plain twin computes the exact
+integer function (in f64, exact for any D that int32 holds) for both.
+
+On CUDA tensors `int8_block_max` launches the hand-written kernels of
+`csrc/int8_block_max.cu` (mma.sync on the tensor cores); on CPU tensors it
+runs `int8_block_max_plain`. Nothing in either package's search path calls
+them: they measure the floor that K6's sweep and the store's `device_refine`
+are held against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _kernels
+from .topk import pad_columns
+
+LANES = 128        # the strip's columns a block: the TPU kernel's lane width
+COL_MULTIPLE = 16  # the D the kernels load whole: 16 bytes of int8
+UPCASTS = {"bf16": "int8_block_max_bf16", "int8": "int8_block_max_i8"}
+
+
+def _kernel_name(block: int, upcast: str) -> str:
+    if upcast not in UPCASTS:
+        raise ValueError(f"upcast must be one of {sorted(UPCASTS)}, got "
+                         f"{upcast!r}")
+    if block < LANES or block % LANES:
+        raise ValueError(f"block ({block}) must be a positive multiple of "
+                         f"{LANES}")
+    return UPCASTS[upcast]
+
+
+def _check_inputs(q_i8, e_i8) -> None:
+    if q_i8.dim() != 2 or e_i8.dim() != 2:
+        raise ValueError("int8_block_max takes q_i8 [Q, D] and e_i8 [N, D]")
+    if q_i8.dtype != torch.int8 or e_i8.dtype != torch.int8:
+        raise ValueError(f"int8_block_max takes int8 operands, got "
+                         f"{q_i8.dtype} and {e_i8.dtype}")
+    if q_i8.shape[1] != e_i8.shape[1]:
+        raise ValueError(f"q_i8 has D={q_i8.shape[1]}, e_i8 "
+                         f"D={e_i8.shape[1]}")
+    if q_i8.shape[0] < 1 or q_i8.shape[1] < 1:
+        raise ValueError(f"int8_block_max takes Q ≥ 1 and D ≥ 1, got "
+                         f"{tuple(q_i8.shape)}")
+    if q_i8.device != e_i8.device:
+        raise ValueError(f"q_i8 is on {q_i8.device}, e_i8 on {e_i8.device}")
+
+
+def int8_block_max_plain(q_i8, e_i8, *, block: int = 2048, upcast: str):
+    """Plain twin of K10 and K11: the exact integer products of the whole
+    blocks (f64 holds them exactly), the max over each block's strided
+    groups, cast to f32."""
+    name = _kernel_name(block, upcast)
+    _check_inputs(q_i8, e_i8)
+    if e_i8.is_cuda:
+        _kernels.PLAIN_ON_CUDA[name] += 1
+    q, nb = q_i8.shape[0], e_i8.shape[0] // block
+    s = q_i8.double() @ e_i8[: nb * block].double().T          # [Q, nb·block]
+    s = s.reshape(q, nb, block // LANES, LANES).amax(dim=2)
+    return s.reshape(q, nb * LANES).float()
+
+
+def _int8_block_max_kernel(q_i8, e_i8, block: int, name: str):
+    _check_inputs(q_i8, e_i8)
+    q, n = q_i8.shape[0], e_i8.shape[0]
+    nb = n // block
+    out = torch.empty((q, nb * LANES), dtype=torch.float32,
+                      device=e_i8.device)
+    if nb == 0:  # no whole block: nothing to read, nothing to launch
+        return out
+    # zero columns add 0 to every product: a copy on the card
+    q_i8, e_i8 = (pad_columns(x, COL_MULTIPLE) for x in (q_i8, e_i8))
+    q_i8, e_i8 = (
+        x if x.is_contiguous() and x.data_ptr() % 16 == 0
+        else x.clone(memory_format=torch.contiguous_format)
+        for x in (q_i8, e_i8))
+    lib = _kernels.load(name)
+    with torch.cuda.device(e_i8.device):
+        err = getattr(lib, name)(
+            _kernels.ptr(q_i8), _kernels.ptr(e_i8), q, n, q_i8.shape[1],
+            block, _kernels.ptr(out), _kernels.stream_of(e_i8))
+    _kernels.check(lib, err, name)
+    _kernels.LAUNCHES[name] += 1
+    return out
+
+
+def int8_block_max(q_i8, e_i8, *, block: int = 2048, upcast: str):
+    """q_i8 [Q, D] int8 × e_i8 [N, D] int8 → [Q, (N // block)·128] f32, the
+    max of each block's strided groups (see the module docstring).
+
+    Any Q ≥ 1 and any D; on CUDA a D that is not a multiple of 16 is padded
+    with zero columns (a copy that changes no product). `block` must be a
+    multiple of 128; rows past the last whole block are not read."""
+    name = _kernel_name(block, upcast)
+    if e_i8.is_cuda:
+        return _int8_block_max_kernel(q_i8, e_i8, block, name)
+    return int8_block_max_plain(q_i8, e_i8, block=block, upcast=upcast)

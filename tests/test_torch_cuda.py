@@ -938,3 +938,167 @@ def test_store_past_former_limits_on_the_card_matches_the_cpu(dev, dim,
     near = np.abs(np.diff(cs, axis=1)) <= NEAR_TIE
     near = np.pad(near, ((0, 0), (0, 1))) | np.pad(near, ((0, 0), (1, 0)))
     assert not (differ & ~near).any()
+
+
+# K10 and K11: exact integer arithmetic in both kernels (every partial sum
+# below 2^24 at D ≤ 1024, and in int32 past it), so the strips equal the
+# twin's bit for bit.
+def _uniform_int8(gen, dev, shape):
+    return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                         dtype=torch.int8)
+
+
+@pytest.mark.parametrize("upcast", ["bf16", "int8"])
+@pytest.mark.parametrize("q,n,d,block", [
+    (64, 3 * 2048 + 100, 1024, 2048),    # the recipe's Q, D, block; a tail
+    (64, 3 * 2048 + 100, 256, 2048),
+    (1, 5000, 256, 256),
+    (7, 4096 + 77, 1024, 128),
+    (300, 8192 + 5, 1024, 2048),          # several query tiles
+    (1, 4096, 1000, 2048),                # D padded to 1008
+    (300, 2 * 2048, 1000, 256),
+    (17, 2048, 48, 2048),                 # one chunk, short of 64 bytes
+    (64, 100_000, 1024, 2048),
+])
+def test_int8_block_max_kernels_match_plain(dev, upcast, q, n, d, block):
+    from rag_dpo_tpu_torch.ops.int8_matmul import (
+        UPCASTS,
+        int8_block_max,
+        int8_block_max_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(q + n + d)
+    q_i8, e_i8 = (_uniform_int8(gen, dev, s) for s in ((q, d), (n, d)))
+    name = UPCASTS[upcast]
+    before = _kernels.LAUNCHES[name]
+    got = int8_block_max(q_i8, e_i8, block=block, upcast=upcast)
+    assert _kernels.LAUNCHES[name] == before + 1
+    want = int8_block_max_plain(q_i8, e_i8, block=block, upcast=upcast)
+    torch.cuda.synchronize()
+    assert got.shape == (q, n // block * 128) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(int8_block_max(q_i8, e_i8, block=block,
+                                      upcast=upcast), got)
+
+
+def test_int8_block_max_bf16_equals_i8_at_the_extremes(dev):
+    """−128 and 127 at D 1024: the sums reach 2^24, still exact in f32."""
+    from rag_dpo_tpu_torch.ops.int8_matmul import int8_block_max
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    sign = (torch.rand((80, 1024), generator=gen, device=dev) < 0.5)
+    vals = torch.where(sign, -128, 127).to(torch.int8)
+    q_i8, e_i8 = vals[:16].clone(), vals.repeat(100, 1)[:4096 + 30]
+    q_i8[0] = -128
+    e_i8[0] = -128
+    bf16 = int8_block_max(q_i8, e_i8, block=256, upcast="bf16")
+    i8 = int8_block_max(q_i8, e_i8, block=256, upcast="int8")
+    want = (q_i8.double() @ e_i8[:4096].double().T).view(16, 16, 2, 128)
+    assert float(bf16[0, 0]) == 2.0 ** 24
+    assert torch.equal(bf16, i8)
+    assert torch.equal(i8, want.amax(2).reshape(16, 2048).float())
+
+
+def test_int8_block_max_rejects_what_it_does_not_take(dev):
+    from rag_dpo_tpu_torch.ops.int8_matmul import int8_block_max
+
+    q = torch.zeros((2, 64), dtype=torch.int8, device=dev)
+    e = torch.zeros((1000, 64), dtype=torch.int8, device=dev)
+    for args, kw in (((q, e), {"block": 200}),             # block off 128
+                     ((q.float(), e), {}),                 # int8 queries
+                     ((q, e[:, :32]), {}),                 # D differs
+                     ((q.cpu(), e), {})):                  # devices
+        with pytest.raises(ValueError):
+            int8_block_max(*args, upcast="int8", **{"block": 256, **kw})
+    out = int8_block_max(q, e, block=256, upcast="bf16")
+    assert out.shape == (2, 384) and (out == 0).all()
+
+
+def test_quantize_rows_on_the_card_gives_the_cpus_bits(dev):
+    """The int8 image and its scales, bit for bit on both devices (a scale
+    divided by the scalar 127 on CUDA is a reciprocal multiply, one ulp
+    off in some rows, which moved int8 values across rounding
+    boundaries)."""
+    from rag_dpo_tpu_torch.ops.quantize import quantize_rows
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((20_000, 1024)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    cq, cs = quantize_rows(torch.from_numpy(x))
+    gq, gs = quantize_rows(torch.from_numpy(x).to(dev))
+    assert torch.equal(gq.cpu(), cq)
+    assert torch.equal(gs.cpu().view(torch.int32), cs.view(torch.int32))
+
+
+def test_quantize_searches_on_the_card_match_the_cpu(dev):
+    """The six int8 functions of `ops.quantize` on CUDA tensors (the int8
+    product by `torch._int_mm`, Q 5 padded past 16 rows) against the same
+    calls on the CPU: the same ids, scores within f32 rounding of the
+    refine's sums; no kernel launches and no twin runs."""
+    from rag_dpo_tpu_torch.ops import quantize as qz
+
+    rng = np.random.default_rng(9)
+    e = rng.standard_normal((3001, 64)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    q = rng.standard_normal((5, 64)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    pen = np.where(np.arange(3001) % 3 == 0, -1e4, 0.0).astype(np.float32)
+    out = {}
+    for device in ("cpu", dev):
+        e_t, q_t, p_t = (torch.from_numpy(x).to(device) for x in (e, q, pen))
+        e_i8, e_s = qz.quantize_rows(e_t)
+        q_i8, q_s = qz.quantize_rows(q_t)
+        before = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_ON_CUDA)
+        cs, ci = qz.int8_blockscan_candidates(q_i8, q_s, e_i8, e_s, 40, 512,
+                                              penalty=p_t)
+        out[str(device)] = [
+            qz.approx_topk_int8(q_i8, q_s, e_i8, e_s, 10, penalty=p_t),
+            qz.approx_topk_int8_refined(q_t, e_i8, e_s, e_t, 10, 8, p_t),
+            qz.approx_topk_int8_selfrefined(q_t, e_i8, e_s, 10, 8, p_t),
+            (cs, ci),
+            qz.approx_topk_int8_blockscan(q_t, e_i8, e_s, 10, 8, 512, p_t),
+            qz.approx_topk_int8_blockscan(q_t, e_i8, e_s, 10, 8, 512, p_t,
+                                          e_ref=e_t),
+            qz.dequant_refine(q_t, e_i8, e_s, cs, ci, 10),
+        ]
+        assert (dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_ON_CUDA)) \
+            == before
+    for (cs, ci), (gs, gi) in zip(out["cpu"], out[str(dev)]):
+        assert torch.equal(gi.cpu(), ci)
+        assert float((gs.cpu() - cs).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("sweep_block_rows", [0, 1024])
+def test_device_refine_store_on_the_card_matches_the_cpu(dev,
+                                                         sweep_block_rows):
+    """`IndexConfig(device_refine=True)` on the card (selfrefined, and
+    blockscan at 1024-row blocks) against the CPU store: the same ids, with
+    and without a filter and after a delete; no kernel, no twin."""
+    from rag_dpo_tpu_torch.index import DeviceIndex, IndexConfig
+
+    rng = np.random.default_rng(10)
+    n = 20_000
+    dense = rng.standard_normal((n, 64)).astype(np.float32)
+    dense /= np.linalg.norm(dense, axis=1, keepdims=True)
+    ids = [f"r{i}" for i in range(n)]
+    metas = [{"nature": "GUIDE" if i % 2 else "DOCTRINE"} for i in range(n)]
+    q = rng.standard_normal((64, 64)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    cfg = IndexConfig(dim=64, ell_width=4, quantize_int8=True,
+                      device_refine=True, sweep_block_rows=sweep_block_rows)
+    out = {}
+    for device in ("cpu", dev):
+        idx = DeviceIndex(cfg, device=device)
+        idx.add(ids, dense, metas)
+        idx.delete(ids[::97])
+        before = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_ON_CUDA)
+        out[str(device)] = (idx.search_dense(q, 10),
+                            idx.search_dense(q[:3], 10,
+                                             where={"nature": "DOCTRINE"}))
+        assert (dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_ON_CUDA)) \
+            == before
+    for (cs, ci), (gs, gi) in zip(out["cpu"], out[str(dev)]):
+        np.testing.assert_array_equal(gi, ci)
+        assert np.abs(gs - cs).max() <= 1e-6

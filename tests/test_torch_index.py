@@ -115,13 +115,17 @@ def _port_config():
 
 
 def test_unported_engines_raise(corpus):
-    """Int8 storage and the postings engine are ported (slice 4); the
-    on-card int8 refine is not, and raises with its queue number."""
+    """Int8 storage and the postings engine are ported (slice 4), and the
+    on-card int8 refine too (slice 9): no engine raises any more; an int8
+    index with `device_refine` builds and finds its own rows."""
     from rag_dpo_tpu_torch.index import IndexConfig
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DeviceIndex(IndexConfig(dim=16, quantize_int8=True,
-                                device_refine=True), device="cpu")
+    refine = DeviceIndex(IndexConfig(dim=16, ell_width=24, row_block=64,
+                                     quantize_int8=True, device_refine=True),
+                         device="cpu")
+    _fill(refine, corpus, 0, 20)
+    _, rows = refine.search_dense(corpus["dense"][[3, 11]], 5)
+    assert rows[:, 0].tolist() == [3, 11]
     DeviceIndex(IndexConfig(dim=16, quantize_int8=True), device="cpu")
     idx = DeviceIndex(_port_config(), device="cpu")
     _fill(idx, corpus, 0, 20)

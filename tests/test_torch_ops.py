@@ -25,6 +25,7 @@ from rag_dpo_tpu_torch.ops.flash_attention import (
 )
 from rag_dpo_tpu_torch.ops.flash_attention_bwd import flash_attention_fused
 from rag_dpo_tpu_torch.ops.fusion import rrf_fuse, rrf_fuse_reference
+from rag_dpo_tpu_torch.ops.int8_matmul import int8_block_max
 from rag_dpo_tpu_torch.ops.maxsim import maxsim
 from rag_dpo_tpu_torch.ops.pooled import pooled_group_max
 from rag_dpo_tpu_torch.ops.sparse import ell_scores, ell_scores_reference, ell_topk
@@ -271,9 +272,14 @@ def test_wrappers_take_plain_twin_on_cpu_without_launching():
                      torch.zeros((40, 16), dtype=torch.int8), torch.ones(40),
                      block_n=16, group=4)
     fused_candidates_topk(torch.zeros((2, 8)), torch.zeros((300, 8)), 5)
+    for upcast in ("bf16", "int8"):
+        int8_block_max(torch.zeros((2, 16), dtype=torch.int8),
+                       torch.zeros((300, 16), dtype=torch.int8), block=128,
+                       upcast=upcast)
     none = {name: 0 for name in ("flash_fwd", "ell_topk", "flash_bwd_dq",
                                  "flash_bwd_dkv", "maxsim", "fused_topk",
-                                 "pooled_max", "fused_candidates")}
+                                 "pooled_max", "fused_candidates",
+                                 "int8_block_max_bf16", "int8_block_max_i8")}
     assert _kernels.LAUNCHES == none
     assert _kernels.PLAIN_ON_CUDA == none
 

@@ -243,6 +243,22 @@ BLOCKED_RUN = textwrap.dedent("""
                                   seg=32)
     assert rc[:, 0].tolist() == [0, 1], rc
 
+    # the on-card int8 refine and the int8 sweep floor (slice 9)
+    from rag_dpo_tpu_torch.ops.int8_matmul import int8_block_max
+
+    for blocks in (0, 128):
+        dr = DeviceIndex(IndexConfig(dim=64, ell_width=8, row_block=64,
+                                     quantize_int8=True, device_refine=True,
+                                     sweep_block_rows=blocks), device="cpu")
+        dr.add([f"r{i}" for i in range(300)], dense)
+        _, rd = dr.search_dense(dense[:3], 5)
+        assert (rd[:, 0] == [0, 1, 2]).all(), rd
+    e8 = torch.from_numpy(rng.integers(-127, 128, (300, 64)).astype(np.int8))
+    strip = int8_block_max(e8[:2], e8, block=256, upcast="int8")
+    dots = e8[:2].long() @ e8[:256].long().T
+    assert strip.shape == (2, 128) and torch.equal(
+        strip, dots.view(2, 2, 128).amax(1).float()), strip
+
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                   "transformers", "rag_dpo_tpu")]

@@ -130,9 +130,20 @@ def test_int8_checkpoints_cross_load(int8_pair, tmp_path):
 
 
 def test_device_refine_still_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DeviceIndex(IndexConfig(dim=16, quantize_int8=True,
-                                device_refine=True), device="cpu")
+    """The on-card int8 refine is ported (slice 9): `device_refine` no longer
+    raises; it builds and searches on the CPU, by one sweep and by forced
+    row blocks (`tests/test_torch_quantize_int8.py` holds it to JAX)."""
+    rng = np.random.default_rng(0)
+    dense = rng.standard_normal((300, 16)).astype(np.float32)
+    dense /= np.linalg.norm(dense, axis=1, keepdims=True)
+    for blocks in (0, 64):
+        idx = DeviceIndex(IndexConfig(dim=16, row_block=64, quantize_int8=True,
+                                      device_refine=True,
+                                      sweep_block_rows=blocks), device="cpu")
+        idx.add([f"r{i}" for i in range(300)], dense)
+        s, i = idx.search_dense(dense[[0, 150, 299]], 5)
+        assert i[:, 0].tolist() == [0, 150, 299]
+        assert (np.diff(s, axis=1) <= 0).all()
 
 
 @pytest.fixture(scope="module")
