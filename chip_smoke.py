@@ -132,9 +132,10 @@ SCALE_BATCHES = (1, 64, 256)
 SCALE_MIN_RECALL = 0.99
 # bench_fused_cand.py:62-65: K5's recipe (and per_seg 2 or 1) over such rows
 CAND_RECIPE, CAND_K = {"block_n": 2048, "seg": 128}, 40
-# K4 and K6 sum each dot in d order, their twins in cuBLAS's, both in f32:
-# scores agree within 1e-5, and ids but where two rows (K6: the two best of
-# a group) lie within 1e-5 of each other
+# K4 and K6 sum each dot on the tensor cores in their order, their twins in
+# cuBLAS's, both in f32 (every product exact): scores agree within 1e-5,
+# and ids but where two rows (K6: the two best of a group) lie within 1e-5
+# of each other
 NEAR_TIE = 1e-5
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_PAIRS, TRAIN_SEQ, TIMED_STEPS = 16, 192, 8
@@ -1100,6 +1101,7 @@ def check_pooled(dev, gen) -> dict:
         pooled_group_max_plain,
     )
     from rag_dpo_tpu_torch.ops.quantize import quantize_rows
+    from rag_dpo_tpu_torch.ops.widen_product import widen_plan
 
     rows, pen = scale_rows(dev, gen)
     e_i8, e_scale = quantize_rows(rows)
@@ -1134,8 +1136,9 @@ def check_pooled(dev, gen) -> dict:
         ms = cuda_ms(lambda: pooled_group_max(*args), iters=10)
         plain_ms = cuda_ms(lambda: pooled_group_max_plain(*args), iters=3,
                            warmup=1)
-        dms = device_ms(lambda: pooled_group_max(*args), iters=5,
-                        launches=1)
+        # the call's device events: the kernel and the copy of the
+        # queries with their columns in the kernel's k order
+        dms = device_ms(lambda: pooled_group_max(*args), iters=5)
         # the int8 rows, their scales and the penalty, the queries read
         # once; bf16 maxima and int32 ids written once
         n_pool = ki.shape[1]
@@ -1149,8 +1152,14 @@ def check_pooled(dev, gen) -> dict:
             f"plain_ms={plain_ms:.4f}; bound {bnd['bound_ms']:.4f} ms "
             f"({bnd['bound_by']}), on the f32 cores "
             f"{bnd['f32_cores_bound_ms']:.4f} ms")
+        # the kernel's instance and launch plan at this batch
+        plan = widen_plan(nq, d)
         out[f"q{nq}"] = {"ms": ms, "device_ms": dms, "plain_ms": plain_ms,
-                         "near_tie_ids": int(differ.sum()), **bnd}
+                         "near_tie_ids": int(differ.sum()),
+                         "instance": f"pooled_max_kernel<{plan.nq}>",
+                         "plan": {"queries_a_block": plan.nq,
+                                  "stages": plan.stages,
+                                  "smem_bytes": plan.smem}, **bnd}
     main = out.pop(f"q{SCALE_BATCHES[-1]}")
     return {"max_abs_err": worst, **main, "library_ms": None,
             "shape": f"[{SCALE_BATCHES[-1]}x1024] bf16 x [{n}x1024] int8, "
@@ -1602,14 +1611,16 @@ def run_scale(seed: int, dev) -> dict:
             f"sparse {med[1] * 1e3:.2f}, rrf {med[2] * 1e3:.2f}) = "
             f"{timed[nq]['queries_per_s']:.1f} queries/s")
     q256, qt256, qw256 = batches[SCALE_BATCHES[-1]]
-    busy, parts = profile_once(lambda: hybrid(q256, qt256, qw256),
-                               "one batch-256 hybrid search",
-                               timed[256]["p50_ms"] / 1e3,
-                               show=("pooled", "topk", "Memcpy"))
-    if not parts["pooled"]:  # K6 ran, so the trace lost its events
-        log("profile: no pooled_max event in the trace (the profiler lost "
-            "the kernels' events): busy share not measured")
-        busy = None
+    busy, parts = {}, {}
+    for nq in (SCALE_BATCHES[0], SCALE_BATCHES[-1]):
+        busy[nq], parts[nq] = profile_once(
+            lambda b=batches[nq]: hybrid(*b), f"one batch-{nq} hybrid search",
+            timed[nq]["p50_ms"] / 1e3, show=("pooled", "topk", "Memcpy"))
+        if not parts[nq]["pooled"]:  # K6 ran, so the trace lost its events
+            log(f"profile: batch {nq}: no pooled_max event in the trace "
+                "(the profiler lost the kernel's events): busy share not "
+                "measured")
+            busy[nq] = None
     # dense recall@10: the head of the int8 top-40 against exact top-10
     # from an index over the same host rows kept in f32 (K4 on the f16
     # rows widened exactly, the host refine's arithmetic)
@@ -1653,7 +1664,9 @@ def run_scale(seed: int, dev) -> dict:
             "build_s": build_s, "save_s": save_s, "load_s": load_s,
             "image_s": image_s, "first_search_s": first_s,
             "checkpoint_gb": ckpt_gb,
-            "batch256_device_busy_share": busy, "batch256_device_parts": parts,
+            "batch1_device_busy_share": busy[SCALE_BATCHES[0]],
+            "batch256_device_busy_share": busy[SCALE_BATCHES[-1]],
+            "device_parts": parts,
             "device_refine": device_refine}
 
 
@@ -2357,6 +2370,9 @@ def main() -> int:
         {"name": "pooled_max", "route": "cuda",
          "source": "rag_dpo_tpu_torch/csrc/pooled.cu",
          "replaces": "rag_dpo_tpu/ops/pooled.py:44",
+         "instructions": "wgmma m64nNQk16 bf16, A from registers: the int8 "
+                         "rows widened once a block in the lanes that "
+                         "multiply them (csrc/widen_product.cuh)",
          "launches": scale["launches"]["pooled_max"],
          **k6},
         {"name": "fused_candidates", "route": "cuda",
@@ -2369,7 +2385,10 @@ def main() -> int:
            "instructions": instructions, **floor[name]}
           for name, line, instructions in (
               ("int8_block_max_bf16", 38,
-               "mma.sync m16n8k16 bf16 (int8 widened in registers)"),
+               "wgmma m64nNQk16 bf16, A from registers: the int8 rows "
+               "widened once a block in the lanes that multiply them, the "
+               "int8 queries once a block into shared memory "
+               "(csrc/widen_product.cuh)"),
               ("int8_block_max_i8", 51, "mma.sync m16n8k32 s8"))),
     ]
     maxsim = path["maxsim"]

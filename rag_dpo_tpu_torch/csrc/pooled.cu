@@ -13,231 +13,137 @@
 // nearest even) and the row of its first argmax (the lowest a, so the lowest
 // row wins a tie), or -1 where the max is not above -5e29.
 //
-// q is bf16 and e int8: both widen to f32 exactly and each product is exact,
-// so only the sum rounds (in d order, f32 fused multiply-adds per thread).
-// The scale and the penalty apply with two roundings (no fused
-// multiply-add), as the plain twin applies them.
+// The product is csrc/widen_product.cuh's: each int8 row element widened
+// exactly to bf16 once a block, in the registers of the lane that
+// multiplies it, against the bf16 queries (columns permuted by the wrapper
+// to the lanes' k order) on the tensor cores as wgmma m64nNQk16, A from
+// registers, f32 sums (every product exact; the sums in the tensor cores'
+// order). This file is its epilogue: after a tile's products (one layer of
+// 128 groups) each lane folds its cells into a running (max, first layer)
+// kept in registers, the scale and the penalty applied with two roundings
+// (no fused multiply-add), as the plain twin applies them; at an item's
+// end it writes its cells. Any ng: groups past ng in a tile are products
+// nobody writes.
 //
-// Grid (blocks × 128-group chunks, query tiles), 256 threads. Layer a of a
-// block's groups is 128 consecutive rows, so a block walks a = 0..group-1
-// and each thread keeps a running (max, a) for its 1x8 or 4x8 (query, group)
-// cells in registers: no score ever reaches memory. Each layer is a SIMT
-// product of the query tile with 128 rows, D in 64-wide slices staged
-// through shared memory as f32, the next slice loaded into registers while
-// the current one is multiplied; the slices loop over any D % 16 == 0.
-//
-// What bounds it on an H100: the products, 2·Q·N·D flops on the CUDA cores
-// in f32 (67 TFLOP/s), against N·D int8 bytes read once (3.35 TB/s): the
-// operations bound it from Q ~ 5 up. The int8 tensor-core rate (1,979
-// TOP/s) needs int8 queries and is not this function; bf16 wgmma is for a
-// later PR.
+// What bounds it on an H100: at 1M × 1024 rows the bytes (N·D int8 read
+// once, 0.31 ms at 3.35 TB/s) up to Q ~ 150, then the bf16 products
+// (2·Q·N·D at 989 TFLOP/s: 0.53 ms at Q 256). A block holds 16 or 64 queries; past
+// 64 the query tiles of an item are neighbours in the grid and sweep its
+// rows at about the same time, so the rows come from L2 after the first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "widen_product.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileN = 128;            // rows per layer tile
-constexpr int kChunk = 64;             // D per shared-memory slice
-constexpr int kLdE = kTileN + 4;
-constexpr int kEUnits = kTileN * (kChunk / 16) / kThreads;  // 16 int8 each
 constexpr float kNegInf = -1e30f;
 constexpr float kPastPenalty = -5e29f;
 
-__device__ __forceinline__ void load_i8x16(const int8_t* p, bool ok,
-                                           float* out) {
-  uint4 u = make_uint4(0u, 0u, 0u, 0u);
-  if (ok) u = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)  // byte b of word i is element 4i + b
-      out[4 * i + b] = static_cast<float>(
-          static_cast<int8_t>((w[i] >> (8 * b)) & 0xffu));
-}
+template <int NQ>
+struct PooledEpi {
+  static constexpr bool kInt8Queries = false;
+  const float* scale;
+  const float* pen;
+  int P, n_pool, lane_t;
+  __nv_bfloat16* out_v;
+  int* out_i;
+  float vmax[NQ / 2];
+  int amax[NQ / 2];
+  float sc[2], add[2];  // the lane's two rows of the tile
 
-__device__ __forceinline__ void load_bf16x8(const __nv_bfloat16* p, bool ok,
-                                            float* out) {
-  uint4 u = make_uint4(0u, 0u, 0u, 0u);
-  if (ok) u = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  __device__ __forceinline__ void reset() {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 is the high half of an f32
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    for (int i = 0; i < NQ / 2; ++i) { vmax[i] = -INFINITY; amax[i] = 0; }
   }
-}
 
-// Slice c of layer rows (row0 + col for col in [0, 128), cols at or past
-// n_cols empty) and of the query tile, into registers; zeros past N, Q, D.
-template <int MQ>
-__device__ __forceinline__ void load_slice(
-    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ e, int Q,
-    int N, int D, int q0, int row0, int n_cols, int c, int tid,
-    float (&ev)[kEUnits][16], float (&qv)[2][8]) {
+  // the scale and the added term of the lane's rows r0, r0 + 8: 0 and
+  // -1e30 past N (so the row scores -1e30), else the row's scale and its
+  // penalty (-5e29 past P, 0 without one); groups past ng are not written
+  __device__ __forceinline__ void tile_start(const WidenArgs& w,
+                                             const WidenCursor& cur, int r0) {
 #pragma unroll
-  for (int u = 0; u < kEUnits; ++u) {
-    const int id = tid + kThreads * u;
-    const int col = id >> 2, d = c * kChunk + (id & 3) * 16;
-    const int row = row0 + col;
-    const bool ok = col < n_cols && row < N && d < D;
-    load_i8x16(e + static_cast<size_t>(ok ? row : 0) * D + (ok ? d : 0), ok,
-               ev[u]);
-  }
-  constexpr int kQUnits = 16 * MQ * (kChunk / 8);
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int id = tid + kThreads * u;
-    if (id < kQUnits) {
-      const int r = id >> 3, d = c * kChunk + (id & 7) * 8;
-      const bool ok = q0 + r < Q && d < D;
-      load_bf16x8(q + static_cast<size_t>(ok ? q0 + r : 0) * D + (ok ? d : 0),
-                  ok, qv[u]);
+    for (int h = 0; h < 2; ++h) {
+      const size_t row = cur.row(w, r0 + 8 * h);
+      sc[h] = 0.f;
+      add[h] = 0.f;
+      if (row >= static_cast<size_t>(w.N)) {
+        add[h] = kNegInf;
+      } else {
+        sc[h] = __ldg(scale + row);
+        if (pen != nullptr)
+          add[h] = row < static_cast<size_t>(P) ? __ldg(pen + row)
+                                                : kPastPenalty;
+      }
     }
   }
-}
 
-template <int MQ>
-__global__ void __launch_bounds__(kThreads, 2)
-pooled_max_kernel(const __nv_bfloat16* __restrict__ q,
-                  const int8_t* __restrict__ e,
+  __device__ __forceinline__ void fold(const float (&acc)[NQ / 2], int a) {
+#pragma unroll
+    for (int i = 0; i < NQ / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      const float s = __fadd_rn(__fmul_rn(acc[i], sc[h]), add[h]);
+      if (s > vmax[i]) { vmax[i] = s; amax[i] = a; }
+    }
+  }
+
+  __device__ __forceinline__ void write(const WidenArgs& w,
+                                        const WidenCursor& cur, int r0,
+                                        int q0) {
+#pragma unroll
+    for (int i = 0; i < NQ / 2; ++i) {
+      const int qg = q0 + acc_query(i, lane_t);
+      const int g = cur.g0 + r0 + acc_row(i);
+      if (qg >= w.Q || g >= w.ng) continue;
+      const size_t off = static_cast<size_t>(qg) * n_pool +
+                         static_cast<size_t>(cur.j) * w.ng + g;
+      out_v[off] = __float2bfloat16_rn(vmax[i]);
+      out_i[off] = vmax[i] > kPastPenalty
+                       ? cur.j * w.block_n + amax[i] * w.ng + g
+                       : -1;
+    }
+  }
+};
+
+template <int NQ>
+__global__ void __launch_bounds__(kWThreads, 1)
+pooled_max_kernel(const __grid_constant__ CUtensorMap map_e,
+                  const __grid_constant__ CUtensorMap map_q, WidenArgs w,
                   const float* __restrict__ scale,
-                  const float* __restrict__ pen, int P, int Q, int N, int D,
-                  int block_n, int group, int n_pool,
-                  __nv_bfloat16* __restrict__ out_v,
-                  int* __restrict__ out_i) {
-  constexpr int TQ = 16 * MQ;
-  constexpr int kLdQ = TQ + 4;
-  constexpr int kQUnits = TQ * (kChunk / 8);
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kChunk][kLdQ]
-  float* es = qs + kChunk * kLdQ;                // [kChunk][kLdE]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int ng = block_n / group;
-  const int n_gchunks = (ng + kTileN - 1) / kTileN;
-  const int blk = blockIdx.x / n_gchunks;
-  const int g0 = (blockIdx.x % n_gchunks) * kTileN;
-  const int n_cols = min(kTileN, ng - g0);
-  const int base = blk * block_n;
-  const int q0 = blockIdx.y * TQ;
-  const int n_chunks = (D + kChunk - 1) / kChunk;
-
-  float vmax[MQ][8];
-  int amax[MQ][8];
-#pragma unroll
-  for (int i = 0; i < MQ; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) { vmax[i][j] = -INFINITY; amax[i][j] = 0; }
-
-  for (int a = 0; a < group; ++a) {
-    const int row0 = base + a * ng + g0;
-    float acc[MQ][8];
-#pragma unroll
-    for (int i = 0; i < MQ; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    float ev[kEUnits][16], qv[2][8];
-    load_slice<MQ>(q, e, Q, N, D, q0, row0, n_cols, 0, tid, ev, qv);
-    for (int c = 0; c < n_chunks; ++c) {
-#pragma unroll
-      for (int u = 0; u < kEUnits; ++u) {
-        const int id = tid + kThreads * u;
-        const int col = id >> 2, d0 = (id & 3) * 16;
-#pragma unroll
-        for (int x = 0; x < 16; ++x) es[(d0 + x) * kLdE + col] = ev[u][x];
-      }
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int id = tid + kThreads * u;
-        if (id < kQUnits) {
-          const int r = id >> 3, d0 = (id & 7) * 8;
-#pragma unroll
-          for (int x = 0; x < 8; ++x) qs[(d0 + x) * kLdQ + r] = qv[u][x];
-        }
-      }
-      __syncthreads();
-      if (c + 1 < n_chunks)
-        load_slice<MQ>(q, e, Q, N, D, q0, row0, n_cols, c + 1, tid, ev, qv);
-#pragma unroll 8
-      for (int kk = 0; kk < kChunk; ++kk) {
-        float av[MQ], b[8];
-        if constexpr (MQ == 4) {
-          const float4 t = *reinterpret_cast<const float4*>(
-              qs + kk * kLdQ + ty * 4);
-          av[0] = t.x; av[1] = t.y; av[2] = t.z; av[3] = t.w;
-        } else {
-          av[0] = qs[kk * kLdQ + ty];
-        }
-        const float4 b0 =
-            *reinterpret_cast<const float4*>(es + kk * kLdE + tx * 4);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(es + kk * kLdE + 64 + tx * 4);
-        b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-        b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-        for (int i = 0; i < MQ; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-    // group cells col = tx*4 + j and 64 + tx*4 + j of this layer
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-      const int row = row0 + col;
-      const bool live = col < n_cols && row < N;
-      float sc = 0.f, add = 0.f;
-      if (live) {
-        sc = scale[row];
-        if (pen != nullptr) add = row < P ? pen[row] : kPastPenalty;
-      }
-#pragma unroll
-      for (int i = 0; i < MQ; ++i) {
-        const float s =
-            live ? __fadd_rn(__fmul_rn(acc[i][j], sc), add) : kNegInf;
-        if (s > vmax[i][j]) { vmax[i][j] = s; amax[i][j] = a; }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-    if (col >= n_cols) continue;
-    const int g = g0 + col;
-#pragma unroll
-    for (int i = 0; i < MQ; ++i) {
-      const int qg = q0 + ty * MQ + i;
-      if (qg >= Q) continue;
-      const size_t off = static_cast<size_t>(qg) * n_pool + blk * ng + g;
-      out_v[off] = __float2bfloat16_rn(vmax[i][j]);
-      out_i[off] = vmax[i][j] > kPastPenalty ? base + amax[i][j] * ng + g : -1;
-    }
-  }
+                  const float* __restrict__ pen, int P, int n_pool,
+                  __nv_bfloat16* __restrict__ out_v, int* __restrict__ out_i) {
+  PooledEpi<NQ> epi;
+  epi.scale = scale;
+  epi.pen = pen;
+  epi.P = P;
+  epi.n_pool = n_pool;
+  epi.out_v = out_v;
+  epi.out_i = out_i;
+  epi.lane_t = threadIdx.x & 3;
+  widen_sweep<NQ>(w, &map_e, &map_q, epi);
 }
 
-template <int MQ>
-cudaError_t launch(const void* q, const int8_t* e, const float* scale,
-                   const float* pen, int P, int Q, int N, int D, int block_n,
-                   int group, void* out_v, int* out_i, cudaStream_t st) {
-  constexpr int TQ = 16 * MQ;
-  const size_t smem = sizeof(float) * (kChunk * (TQ + 4) + kChunk * kLdE);
-  cudaError_t err = cudaFuncSetAttribute(
-      pooled_max_kernel<MQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+template <int NQ>
+cudaError_t launch(const WidenArgs& w, const float* scale, const float* pen,
+                   int P, int n_pool, void* out_v, int* out_i,
+                   cudaStream_t st) {
+  CUtensorMap map_e, map_q;
+  const int dq = (w.D + 63) / 64 * 64;  // the permuted queries' columns
+  cudaError_t err = int8_rows_map(&map_e, w.e, w.N, w.D);
+  if (err == cudaSuccess) err = bf16_map(&map_q, w.q, w.Q, dq, NQ);
   if (err != cudaSuccess) return err;
-  const int nb = (N + block_n - 1) / block_n;
-  const int ng = block_n / group;
-  const dim3 grid(nb * ((ng + kTileN - 1) / kTileN), (Q + TQ - 1) / TQ);
-  pooled_max_kernel<MQ><<<grid, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), e, scale, pen, P, Q, N, D,
-      block_n, group, nb * ng, static_cast<__nv_bfloat16*>(out_v), out_i);
+  const int smem =
+      widen_smem(NQ, w.stages, false, (w.D + kWChunk - 1) / kWChunk);
+  err = cudaFuncSetAttribute(pooled_max_kernel<NQ>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  pooled_max_kernel<NQ><<<w.walkers * w.qtiles, kWThreads, smem, st>>>(
+      map_e, map_q, w, scale, pen, P, n_pool,
+      static_cast<__nv_bfloat16*>(out_v), out_i);
   return cudaGetLastError();
 }
 
@@ -245,23 +151,47 @@ cudaError_t launch(const void* q, const int8_t* e, const float* scale,
 
 extern "C" {
 
-// q [Q, D] bf16, e [N, D] int8, scale [N] f32, penalty [P] f32 or null, all
-// contiguous and 16-byte aligned; out_v [Q, nb·ng] bf16 and out_i [Q, nb·ng]
-// int32 with nb = ceil(N / block_n), ng = block_n / group. Needs
-// D % 16 == 0 (any D: the slices loop over it) and block_n % group == 0.
-// Returns a cudaError_t.
+// q [Q, Dq] bf16 with Dq = D rounded up to 64, its columns in query_col
+// order (ops/widen_product.py's `permute_columns`), e [N, D] int8, scale
+// [N] f32, penalty [P] f32 or null, all contiguous and 16-byte aligned;
+// out_v [Q, nb·ng] bf16 and out_i [Q, nb·ng] int32 with nb = ceil(N /
+// block_n), ng = block_n / group. Needs D % 16 == 0 and block_n % group ==
+// 0. The plan (nq queries a block, stages) is ops/widen_product.py's
+// `widen_plan`. Returns a cudaError_t.
 int pooled_max(const void* q, const int8_t* e, const float* scale,
                const float* penalty, int P, int Q, int N, int D, int block_n,
-               int group, void* out_v, int* out_i, void* stream) {
+               int group, int nq, int stages, void* out_v, int* out_i,
+               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chunks = (D + kWChunk - 1) / kWChunk;
   if (Q <= 0 || N <= 0 || D < 16 || D % 16 != 0 || group <= 0 ||
-      block_n <= 0 || block_n % group != 0 || (penalty != nullptr && P < 0))
+      block_n <= 0 || block_n % group != 0 || (penalty != nullptr && P < 0) ||
+      !widen_plan_ok(nq, stages, false, chunks))
     return cudaErrorInvalidValue;
-  if (Q <= 16)
-    return launch<1>(q, e, scale, penalty, P, Q, N, D, block_n, group, out_v,
-                     out_i, st);
-  return launch<4>(q, e, scale, penalty, P, Q, N, D, block_n, group, out_v,
-                   out_i, st);
+  WidenArgs w;
+  w.q = q;
+  w.e = e;
+  w.Q = Q;
+  w.N = N;
+  w.D = D;
+  w.block_n = block_n;
+  w.group = group;
+  w.ng = block_n / group;
+  const int nb = (N + block_n - 1) / block_n;
+  w.n_gchunks = (w.ng + kWTileRows - 1) / kWTileRows;
+  w.n_items = nb * w.n_gchunks;
+  w.qtiles = (Q + nq - 1) / nq;
+  w.walkers = widen_walkers(w.n_items, w.qtiles);
+  w.stages = stages;
+  const int n_pool = nb * w.ng;
+  if (nq == 16)
+    return launch<16>(w, scale, penalty, P, n_pool, out_v, out_i, st);
+  return launch<64>(w, scale, penalty, P, n_pool, out_v, out_i, st);
+}
+
+// the plan's dynamic shared bytes, as the launch asks for them
+int widen_sweep_smem(int nq, int stages, int resident, int chunks) {
+  return widen_smem(nq, stages, resident != 0, chunks);
 }
 
 const char* kernel_error_string(int err) {

@@ -69,14 +69,15 @@ SIGNATURES = {
     # dtype, q, e, penalty, P, Q, N, D, k, rows_per_block, tile_q, stages,
     # lists_in_smem, merge_in_smem, cand_s, cand_i, out_s, out_i, stream
     "fused_topk": [_I, _P, _P, _P, *[_I] * 10, _P, _P, _P, _P, _P],
-    # q, e_i8, scale, penalty, P, Q, N, D, block_n, group, out_v, out_i,
-    # stream
-    "pooled_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # q (columns permuted), e_i8, scale, penalty, P, Q, N, D, block_n, group,
+    # nq, stages, out_v, out_i, stream
+    "pooled_max": [_P, _P, _P, _P, *[_I] * 8, _P, _P, _P],
     # dtype, q, e, penalty, P, Q, N, D, block_n, seg, per_seg, tile_q,
     # stages, n_blocks, scr_s, scr_i, out_s, out_i, stream
     "fused_candidates": [_I, _P, _P, _P, *[_I] * 10, _P, _P, _P, _P, _P],
+    # q_i8, e_i8, Q, N, D, block, nq, stages, out, stream
+    "int8_block_max_bf16": [_P, _P, *[_I] * 6, _P, _P],
     # q_i8, e_i8, Q, N, D, block, out, stream
-    "int8_block_max_bf16": [_P, _P, _I, _I, _I, _I, _P, _P],
     "int8_block_max_i8": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 

@@ -20,10 +20,12 @@ so at D ≤ 1024 the two give the same bits. The plain twin computes the exact
 integer function (in f64, exact for any D that int32 holds) for both.
 
 On CUDA tensors `int8_block_max` launches the hand-written kernels of
-`csrc/int8_block_max.cu` (mma.sync on the tensor cores); on CPU tensors it
-runs `int8_block_max_plain`. Nothing in either package's search path calls
-them: they measure the floor that K6's sweep and the store's `device_refine`
-are held against.
+`csrc/int8_block_max.cu`: K10 on the int8-widening product it shares with
+K6 (`csrc/widen_product.cuh`: each int8 element widened to bf16 once a
+block, bf16 wgmma; `ops/widen_product.py`'s plan for int8 queries), K11
+on mma.sync s8; on CPU tensors it runs `int8_block_max_plain`. Nothing in
+either package's search path calls them: they measure the floor that K6's
+sweep and the store's `device_refine` are held against.
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ import torch
 
 from . import _kernels
 from .topk import pad_columns
+from .widen_product import COL_MULTIPLE, widen_plan
 
 LANES = 128        # the strip's columns a block: the TPU kernel's lane width
-COL_MULTIPLE = 16  # the D the kernels load whole: 16 bytes of int8
 UPCASTS = {"bf16": "int8_block_max_bf16", "int8": "int8_block_max_i8"}
 
 
@@ -92,11 +94,16 @@ def _int8_block_max_kernel(q_i8, e_i8, block: int, name: str):
         x if x.is_contiguous() and x.data_ptr() % 16 == 0
         else x.clone(memory_format=torch.contiguous_format)
         for x in (q_i8, e_i8))
+    d = q_i8.shape[1]
+    plan = ()
+    if name == UPCASTS["bf16"]:  # the widening product's plan
+        p = widen_plan(q, d, int8_queries=True)
+        plan = (p.nq, p.stages)
     lib = _kernels.load(name)
     with torch.cuda.device(e_i8.device):
         err = getattr(lib, name)(
-            _kernels.ptr(q_i8), _kernels.ptr(e_i8), q, n, q_i8.shape[1],
-            block, _kernels.ptr(out), _kernels.stream_of(e_i8))
+            _kernels.ptr(q_i8), _kernels.ptr(e_i8), q, n, d, block, *plan,
+            _kernels.ptr(out), _kernels.stream_of(e_i8))
     _kernels.check(lib, err, name)
     _kernels.LAUNCHES[name] += 1
     return out
@@ -106,9 +113,11 @@ def int8_block_max(q_i8, e_i8, *, block: int = 2048, upcast: str):
     """q_i8 [Q, D] int8 × e_i8 [N, D] int8 → [Q, (N // block)·128] f32, the
     max of each block's strided groups (see the module docstring).
 
-    Any Q ≥ 1 and any D; on CUDA a D that is not a multiple of 16 is padded
-    with zero columns (a copy that changes no product). `block` must be a
-    multiple of 128; rows past the last whole block are not read."""
+    Any Q ≥ 1 and any D (on CUDA, K10's D ≤ 6144: its query tile stays in
+    shared memory; past it ValueError); on CUDA a D that is not a multiple
+    of 16 is padded with zero columns (a copy that changes no product).
+    `block` must be a multiple of 128; rows past the last whole block are
+    not read."""
     name = _kernel_name(block, upcast)
     if e_i8.is_cuda:
         return _int8_block_max_kernel(q_i8, e_i8, block, name)

@@ -6,8 +6,10 @@ kernel, × the per-row scale, + the penalty; per `block_n`-row block the
 rows form `block_n / group` strided groups (group g holds rows
 `a·ng + g`), and each group gives its max (bf16) and the row of its first
 argmax (the lowest row wins a tie; −1 where the max is not above −5e29).
-On CUDA tensors it launches the hand-written kernel in `csrc/pooled.cu`,
-on CPU tensors it runs `pooled_group_max_plain`. The reference's
+On CUDA tensors it launches the hand-written kernel in `csrc/pooled.cu`
+(the int8 rows widened to bf16 once a block, the products on the tensor
+cores; `ops/widen_product.py`'s plan and query column order), on CPU
+tensors it runs `pooled_group_max_plain`. The reference's
 `(block_n // group) % 128` check was a Mosaic lane constraint and is gone;
 `block_n % group == 0` stays.
 
@@ -22,8 +24,8 @@ import torch
 
 from . import _kernels
 from .topk import NEG_INF, _sort_desc, pad_columns
+from .widen_product import COL_MULTIPLE, permute_columns, widen_plan
 
-COL_MULTIPLE = 16  # the D K6 loads whole: 16 bytes of int8
 
 def _check_blocks(block_n: int, group: int) -> None:
     if group < 1 or block_n < 1 or block_n % group:
@@ -116,13 +118,19 @@ def _pooled_max_kernel(queries_bf16, e_i8, e_scale, penalty, block_n: int,
     n_pool = -(-n // block_n) * (block_n // group)
     out_v = torch.empty((q, n_pool), dtype=torch.bfloat16, device=dev)
     out_i = torch.empty((q, n_pool), dtype=torch.int32, device=dev)
+    n_pen = 0 if penalty is None else penalty.shape[0]
+    if penalty is not None and n_pen == 0:  # a null pointer is no penalty
+        penalty = torch.zeros(1, dtype=torch.float32, device=dev)
+    plan = widen_plan(q, d)
+    # the queries' columns in the lanes' k order, a copy on the card
+    queries_bf16 = permute_columns(queries_bf16)
     lib = _kernels.load("pooled_max")
     with torch.cuda.device(dev):
         err = lib.pooled_max(
             _kernels.ptr(queries_bf16), _kernels.ptr(e_i8),
-            _kernels.ptr(scale), _kernels.ptr(penalty),
-            0 if penalty is None else penalty.shape[0], q, n, d, block_n,
-            group, _kernels.ptr(out_v), _kernels.ptr(out_i),
+            _kernels.ptr(scale), _kernels.ptr(penalty), n_pen, q, n, d,
+            block_n, group, plan.nq, plan.stages,
+            _kernels.ptr(out_v), _kernels.ptr(out_i),
             _kernels.stream_of(e_i8))
     _kernels.check(lib, err, "pooled_max")
     _kernels.LAUNCHES["pooled_max"] += 1

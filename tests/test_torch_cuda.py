@@ -673,6 +673,101 @@ def test_pooled_kernel_matches_plain(dev, q, n, d, block_n, group, pen):
     assert torch.equal(kv2, kv) and torch.equal(ki2, ki)
 
 
+# K6 on the widening product: every plan (1, 2 and 4 warpgroups of queries,
+# resident and streamed queries), N off the block and off a tile's 128
+# rows, D from one 16-column piece to past 1024, groups past ng in a tile
+# (ng 24, ng 200), a last tile with layers past the group (group 7)
+@pytest.mark.parametrize("q,n,d,block_n,group,pen", [
+    (1, 20_037, 128, 8192, 64, None),
+    (16, 20_037, 128, 8192, 64, "short"),
+    (17, 20_037, 1024, 8192, 64, "full"),
+    (64, 20_037, 1024, 8192, 64, "short"),   # resident queries, D 1024
+    (65, 20_037, 256, 8192, 64, None),        # two warpgroups
+    (128, 9001, 512, 1024, 8, "full"),
+    (129, 9001, 1536, 8192, 64, "short"),     # four warpgroups
+    (256, 30_011, 1024, 8192, 64, "full"),
+    (300, 9001, 48, 2048, 16, None),          # two query tiles
+    (5, 3001, 16, 2048, 16, "full"),
+    (70, 5000, 1000, 2048, 16, "short"),      # D padded to 1008
+    (3, 4000, 1536, 1024, 8, None),           # one warpgroup, D 1536
+    (33, 2000, 64, 48, 2, "full"),            # ng 24
+    (2, 999, 32, 896, 7, "short"),            # group 7: a partial last tile
+    (40, 5000, 128, 600, 3, None),            # ng 200: a partial group tile
+])
+def test_pooled_kernel_plans_match_plain(dev, q, n, d, block_n, group, pen):
+    test_pooled_kernel_matches_plain(dev, q, n, d, block_n, group, pen)
+
+
+def test_pooled_kernel_every_row_penalised(dev):
+    """A penalty of length 0: every row lies past it (-5e29), so no group
+    has a max above -5e29 and every id is -1."""
+    from rag_dpo_tpu_torch.ops.pooled import (
+        pooled_group_max,
+        pooled_group_max_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    queries, e_i8, e_scale, _ = _pooled_case(gen, dev, 70, 9000, 256, None)
+    args = (queries, e_i8, e_scale, torch.zeros(0, device=dev))
+    kv, ki = pooled_group_max(*args, block_n=2048, group=16)
+    pv, pi = pooled_group_max_plain(*args, block_n=2048, group=16)
+    torch.cuda.synchronize()
+    assert bool((ki == -1).all()) and bool((pi == -1).all())
+    assert_pooled_close(kv, ki, pv, pi, *args, 2048, 16)
+
+
+@pytest.mark.parametrize("q", [1, 64, 200])
+def test_pooled_kernel_ties_go_to_the_lowest_row(dev, q):
+    """Equal rows planted in one group (layers 3, 10, 40 of group 5 in
+    block 1) under a query equal to them: the max is theirs and its id the
+    lowest row's, as in the twin."""
+    from rag_dpo_tpu_torch.ops.pooled import (
+        pooled_group_max,
+        pooled_group_max_plain,
+    )
+    from rag_dpo_tpu_torch.ops.quantize import quantize_rows
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(q)
+    block_n, group, n, d = 8192, 64, 20_000, 256
+    ng = block_n // group
+    e = torch.randn((n, d), generator=gen, device=dev)
+    e = e / e.norm(dim=1, keepdim=True)
+    planted = [block_n + a * ng + 5 for a in (40, 3, 10)]
+    e[planted] = e[planted[0]].clone()
+    e_i8, e_scale = quantize_rows(e)
+    queries = torch.randn((q, d), generator=gen, device=dev)
+    queries[0] = e[planted[0]] * 3
+    queries = (queries / queries.norm(dim=1, keepdim=True)).bfloat16()
+    kv, ki = pooled_group_max(queries, e_i8, e_scale, block_n=block_n,
+                              group=group)
+    pv, pi = pooled_group_max_plain(queries, e_i8, e_scale, block_n=block_n,
+                                    group=group)
+    torch.cuda.synchronize()
+    assert int(ki[0, ng + 5]) == int(pi[0, ng + 5]) == block_n + 3 * ng + 5
+    assert_pooled_close(kv, ki, pv, pi, queries, e_i8, e_scale, None,
+                        block_n, group)
+
+
+def test_widen_plans_match_the_kernels_shared_memory(dev):
+    """ops/widen_product.py sizes the product's shared memory on the CPU;
+    both libraries that run it (K6's, K10's) count the same bytes."""
+    import ctypes
+
+    from rag_dpo_tpu_torch.ops.widen_product import widen_plan
+
+    for name in ("pooled_max", "int8_block_max_bf16"):
+        fn = _kernels.load(name).widen_sweep_smem
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 4
+        for q in (1, 64, 65, 128, 129, 256, 300):
+            for d in (16, 48, 1000, 1024, 1536, 4096):
+                for int8_queries in (False, True):
+                    p = widen_plan(q, d, int8_queries=int8_queries)
+                    assert p.smem == fn(p.nq, p.stages, int(p.resident),
+                                        p.chunks)
+
+
 def test_pooled_kernel_rejects_what_it_does_not_take(dev):
     from rag_dpo_tpu_torch.ops.pooled import pooled_group_max
 
@@ -959,6 +1054,11 @@ def _uniform_int8(gen, dev, shape):
     (300, 2 * 2048, 1000, 256),
     (17, 2048, 48, 2048),                 # one chunk, short of 64 bytes
     (64, 100_000, 1024, 2048),
+    (1, 2 * 2048 + 5, 1024, 2048),
+    (17, 4096, 512, 256),
+    (65, 2 * 2048, 1024, 2048),           # two query tiles, resident
+    (256, 3 * 2048, 1024, 2048),
+    (300, 2048 + 9, 1536, 2048),          # K10's queries streamed
 ])
 def test_int8_block_max_kernels_match_plain(dev, upcast, q, n, d, block):
     from rag_dpo_tpu_torch.ops.int8_matmul import (

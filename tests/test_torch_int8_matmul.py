@@ -159,3 +159,26 @@ def test_wrapper_takes_the_twin_on_cpu_tensors():
     # fewer rows than a block: an empty strip, nothing read
     empty = int8_block_max(q, e[:100], block=128, upcast="int8")
     assert empty.shape == (5, 0) and empty.dtype == torch.float32
+
+
+# (Q, D) of every K10 case of tests/test_torch_cuda.py, chip_smoke.py and
+# evals/bench_int8_matmul.py
+K10_CUDA_SHAPES = [
+    (64, 1024), (64, 256), (1, 256), (7, 1024), (300, 1024), (1, 1000),
+    (300, 1000), (17, 48), (1, 1024), (17, 512), (65, 1024), (256, 1024),
+    (300, 1536), (16, 1024), (2, 64),
+]
+
+
+@pytest.mark.parametrize("q,d", K10_CUDA_SHAPES)
+def test_k10_plan_of_every_shape(q, d):
+    """K10's query tile (16 queries up to Q 16, else 64) is widened once a
+    block and stays in shared memory for the whole sweep; the ring takes
+    what is left, at least two stages."""
+    from rag_dpo_tpu_torch.ops import widen_product as wp
+
+    p = wp.widen_plan(q, d, int8_queries=True)
+    assert p.resident and p.nq == (16 if q <= 16 else 64)
+    assert 2 <= p.stages <= wp.MAX_STAGES and p.smem <= wp.MAX_SMEM
+    assert p.stages == wp.MAX_STAGES or wp.smem_bytes(
+        p.nq, p.stages + 1, True, p.chunks) > wp.MAX_SMEM

@@ -169,3 +169,90 @@ def test_pooled_topk_int8_matches_jax():
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5,
                                atol=1e-6)
     assert not np.isin(ti.numpy(), np.nonzero(pen)[0]).any()
+
+
+# (Q, D) of every K6 case of tests/test_torch_cuda.py and chip_smoke.py
+K6_CUDA_SHAPES = [
+    (4, 1024), (1, 64), (70, 128), (3, 32), (2, 16), (256, 1024),
+    (4, 1536), (3, 1000), (1, 128), (16, 128), (17, 1024), (64, 1024),
+    (65, 256), (128, 512), (129, 1536), (300, 48), (5, 16), (70, 1000),
+    (3, 1536), (33, 64), (2, 32), (40, 128), (200, 256), (7, 1536),
+    (300, 1536), (64, 1536), (1, 1024),
+]
+
+
+@pytest.mark.parametrize("q,d", K6_CUDA_SHAPES)
+def test_widen_plan_of_every_k6_shape(q, d):
+    """K6's plan: 16 queries a block up to Q 16, else 64 (ceil(Q / 64) query
+    tiles), its bf16 queries in the ring beside the rows, the deepest ring
+    that fits the block's shared memory (up to 8 stages)."""
+    from rag_dpo_tpu_torch.ops import widen_product as wp
+
+    p = wp.widen_plan(q, d)
+    assert p.nq == (16 if q <= 16 else 64) and not p.resident
+    d_pad = -(-d // 16) * 16
+    assert (p.chunks - 1) * 128 < d_pad <= p.chunks * 128
+    assert 2 <= p.stages <= wp.MAX_STAGES and p.smem <= wp.MAX_SMEM
+    assert p.stages == wp.MAX_STAGES or wp.smem_bytes(
+        p.nq, p.stages + 1, False, p.chunks) > wp.MAX_SMEM
+
+
+@pytest.mark.parametrize("d", [16, 48, 128, 1000, 1024, 1040, 1536, 6144])
+def test_widen_plan_fits_any_batch(d):
+    """Every Q from 1 to 1024, for K6 and K10, fits the block's shared
+    memory; the bytes add up as the header lays them out."""
+    from rag_dpo_tpu_torch.ops import widen_product as wp
+
+    for q in range(1, 1025):
+        for int8_queries in (False, True):
+            p = wp.widen_plan(q, d, int8_queries=int8_queries)
+            assert p.smem <= wp.MAX_SMEM and p.stages >= 2
+            assert p.resident == int8_queries
+            q_bytes = p.nq * 128 * 2
+            assert p.smem == (1024 + p.stages * (128 * 128 + (
+                0 if p.resident else q_bytes))
+                + (p.chunks * q_bytes if p.resident else 0) + 128)
+    # the recipe's plans at 1M × 1024
+    if d == 1024:
+        assert wp.widen_plan(1, d) == wp.WidenPlan(16, 8, False, 8)
+        assert wp.widen_plan(64, d) == wp.WidenPlan(64, 7, False, 8)
+        assert wp.widen_plan(256, d) == wp.WidenPlan(64, 7, False, 8)
+        assert wp.widen_plan(64, d, int8_queries=True) == wp.WidenPlan(
+            64, 6, True, 8)
+
+
+def test_widen_plan_refuses_nonsense():
+    from rag_dpo_tpu_torch.ops.widen_product import widen_plan
+
+    for q, d in ((0, 64), (4, 0), (-1, 64)):
+        with pytest.raises(ValueError):
+            widen_plan(q, d)
+    with pytest.raises(ValueError):   # K10's query tile past shared memory
+        widen_plan(64, 6160, int8_queries=True)
+
+
+@pytest.mark.parametrize("d", [16, 48, 64, 100, 1000, 1024, 1536])
+def test_query_columns_permute_and_back(d):
+    """K6's queries go to the kernel with their columns permuted to the
+    lanes' k order: column d at query_col(d), zero columns past D; the
+    inverse gives the bits back."""
+    from rag_dpo_tpu_torch.ops.widen_product import permute_columns, query_col
+
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((5, d)).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    p = permute_columns(x)
+    dp = -(-d // 64) * 64
+    assert p.shape == (5, dp) and p.dtype == torch.bfloat16
+    cols = torch.tensor([query_col(c) for c in range(d)])
+    assert torch.equal(p[:, cols], x)
+    assert sorted(query_col(c) for c in range(dp)) == list(range(dp))
+    # the inverse: [Q, b, s, jh, t, jl] → [Q, b, t, s, jh, jl]
+    back = p.reshape(5, dp // 64, 4, 2, 4, 2).permute(0, 1, 4, 2, 3, 5)
+    back = back.reshape(5, dp)
+    assert torch.equal(back[:, :d], x) and not back[:, d:].any()
+    # the k step and slot each column lands in, as the lanes fill them
+    for c in range(dp):
+        t, s, j = (c >> 4) & 3, (c >> 2) & 3, c & 3
+        col = query_col(c) % 64
+        assert col // 16 == s and col % 16 == 2 * t + (j & 1) + 8 * (j >> 1)
