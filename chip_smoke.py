@@ -14,10 +14,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    tensors, at the shapes the query path gives it (the flash forward at
    the training shape too, f32 and bf16, the same bits twice, and at head
    widths 8 ... 320 and S of 1, 63, 65 and 513; ELL at the hermetic
-   replay's width 48 too;
+   replay's shape too, timed there (one launch) beside an empty kernel's
+   launch-to-launch time, the practical floor of a launch;
    MaxSim at the rerank's full width and the replay's; the fused dense
-   top-k at the serve shape and over 1M rows, the pooled int8 sweep over
-   1M rows, at batches 1, 64 and 256), the per-segment candidates (K5)
+   top-k at the serve shape, the replay's and over 1M rows, the pooled int8
+   sweep over 1M rows, at batches 1, 64 and 256), the per-segment
+   candidates (K5)
    through their own path, `ops.fused_candidates_topk` at
    bench_fused_cand.py's recipe over 1M bf16 rows at batches 1, 64 and
    256 (per_seg 2, and 1 at 64), held to the twin, to the same bits twice
@@ -30,25 +32,30 @@ Phases, in order; any failure exits non-zero before the result lines:
    to its twin; the int8 sweep floor (K10 and K11) first through its own
    path, `evals/bench_int8_matmul.run` at
    benchmarks/bench_pallas_int8_matmul.py's recipe (1,000,000 × 1024
-   uniform int8 rows, Q 64, 2048-row blocks), then bit for bit against
-   its twin, the same bits twice, beside the library strip
+   uniform int8 rows, Q 64, 2048-row blocks), then at Q 64, 1 and 256 bit
+   for bit against its twin, the same bits twice, beside the library strip
    (`torch._int_mm` + strided `amax`), and with K6 at Q 64 on the scale
    rows; then flash attention's dq and dk/dv kernels at the
    training shape and others (Dh 80 and 320 too); timed with CUDA events
    and the profiler, beside each kernel's bound and, where one PyTorch
    call computes the same function, that call's time and device time;
 3b. store limits — a 50,000-row index at dim 1536, bf16 and int8, through
-   `search_dense(k=512)` and `search_sparse` with 100 terms: K4 or K6 and
-   K3 must launch and no twin may run;
+   `search_dense(k=512)` and `search_sparse` with 100 terms: K4 (bf16)
+   and K3 must launch and no twin may run; the int8 ids must be the CPU
+   store's;
 4. scale — bench.py's 1M-chunk recipe made from `--seed` on the card:
    1,000,000 unit rows of 1024 dims, ELL width 24 over 50,000 terms,
    `IndexConfig(quantize_int8=True, postings_cap=256,
    postings_candidates=64)`, built with `DeviceIndex.add`, saved to
-   `TMPDIR` and reloaded; `search_dense(k=40)` (the int8 sweep, K6) +
-   `search_sparse(k=40)` (the postings engine) + `rrf_fuse` to 10 at
-   batches 1, 64 and 256; dense recall@10 of the head of the int8 top-40
-   against an exact f32 index over the same rows (K4) must be ≥ 0.99;
-   postings recall@40 against K3 over the same ELL image is printed; then
+   `TMPDIR` and reloaded; `search_dense(k=40)` (int8 × int8 by
+   `torch._int_mm`, the best 160 re-scored on the host, as the JAX store
+   ranks) + `search_sparse(k=40)` (the postings engine) + `rrf_fuse` to 10
+   at batches 1, 64 and 256; dense recall@10 of the head of the int8
+   top-40 against an exact f32 index over the same rows (K4) must be ≥
+   0.99; K6's own path, `ops.pooled.pooled_topk_int8`, runs once on the
+   same image at batch 256 with the counts from 0, its recall@10
+   recorded; postings recall@40 against K3 over the same ELL image is
+   printed; then
    the same checkpoint loaded again with `device_refine` (the on-card
    int8 × int8 search of `ops.quantize`): `search_dense(k=40)` at the
    same batches with `sweep_block_rows` 0 and 131,072, its dense recall@10
@@ -83,10 +90,9 @@ Phases, in order; any failure exits non-zero before the result lines:
 
 The second-to-last line is a JSON object with each kernel's launches in
 the phase of the main path that runs it (serve for the ELL kernel, MaxSim
-serve for K7, train for the flash kernels, scale for K4 and K6, and for
-K5, K10 and K11 their own paths in the kernel phase: no other path calls
-them, as in the JAX package), its max abs error against the twin, its
-times, its bound
+serve for K7, train for the flash kernels, scale for K4, and for K5, K6,
+K10 and K11 their own paths: no store path calls them, as in the JAX
+package), its max abs error against the twin, its times, its bound
 and the library call's time; the last line is `{"ok": true, "device":
 {...}}`. There is no CPU path.
 """
@@ -124,7 +130,10 @@ FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 MAXSIM_TOL = dict(rtol=1e-5, atol=1e-4)
 SERVE_KERNELS = ("flash_fwd", "ell_topk", "fused_topk")
 MAXSIM_KERNELS = ("flash_fwd", "ell_topk", "fused_topk", "maxsim")
-SCALE_KERNELS = ("fused_topk", "pooled_max")
+# the scale phase's: K4 (the recall gate's f32 oracle); its int8 arm's
+# product is `torch._int_mm`, as JAX leaves it to XLA, and its sparse arm
+# the postings engine (plain)
+SCALE_KERNELS = ("fused_topk",)
 # bench.py:44-58: the 1M-chunk index and its queries
 SCALE_N, SCALE_DIM, SCALE_ELL, SCALE_VOCAB, SCALE_TERMS = (
     1_000_000, 1024, 24, 50_000, 16)
@@ -529,11 +538,15 @@ def check_ell(dev, gen) -> dict:
     _, worst = compare(terms, imps, qt, qw, 40, "sparse arm")
     ms = cuda_ms(lambda: ell_topk(terms, imps, qt, qw, k=40))
     plain_ms = cuda_ms(lambda: ell_topk_plain(terms, imps, qt, qw, 40))
-    dms = device_ms(lambda: ell_topk(terms, imps, qt, qw, k=40))
+    # two launches: the block sort and the merge
+    dms = device_ms(lambda: ell_topk(terms, imps, qt, qw, k=40), launches=2)
     plain_dms = device_ms(lambda: ell_topk_plain(terms, imps, qt, qw, 40))
+    passes = {e.key: e.self_device_time_total / 20 / 1e3 for e in
+              device_events(lambda: ell_topk(terms, imps, qt, qw, k=40), 20)}
     log(f"ell_topk [{n_pad}x{width}] Q=4 T=32 k=40 ids exact "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (device only: "
-        f"kernel {fmt_ms(dms)}, plain {fmt_ms(plain_dms)})")
+        f"kernel {fmt_ms(dms)}, plain {fmt_ms(plain_dms)}); by pass: "
+        + ", ".join(f"{kernel_name(k)} {v:.5f} ms" for k, v in passes.items()))
 
     # tie probes (ROADMAP C-1): 12 hits among 212 rows; 300 zero rows
     t212 = torch.full((212, 4), -1, dtype=torch.int32, device=dev)
@@ -570,16 +583,59 @@ def check_ell(dev, gen) -> dict:
     wh = torch.where(qh >= 0, torch.rand((1, 32), generator=gen,
                                         device=dev) * 5.0, 0.0)
     compare(th, ih, qh, wh, 40, "hermetic shape")
-    log("ell_topk hermetic shape [1024x48] (212 live rows) Q=1 T=32 k=40: "
-        "ids exact")
-    # bytes: terms and impacts read once, query terms and weights, the
-    # top-k out; operations: a multiply-add per (query, row, term)
-    nbytes = 8.0 * (terms.numel() + qt.numel() + 4 * 40)
-    bnd = bound(2.0 * qt.numel() * n_pad, nbytes)
-    log(f"  bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']})")
+    h = {"ms": cuda_ms(lambda: ell_topk(th, ih, qh, wh, k=40), iters=200),
+         "plain_ms": cuda_ms(lambda: ell_topk_plain(th, ih, qh, wh, 40)),
+         # one launch: a single block needs no merge pass
+         "device_ms": device_ms(lambda: ell_topk(th, ih, qh, wh, k=40),
+                                launches=1),
+         **ell_bound(th, qh, 40)}
+    log(f"ell_topk hermetic shape [1024x48] (212 live rows) Q=1 T=32 k=40: "
+        f"ids exact; kernel_ms={h['ms']:.4f} (device {fmt_ms(h['device_ms'])})"
+        f" plain_ms={h['plain_ms']:.4f}; bound {h['bound_ms']:.6f} ms "
+        f"({h['bound_by']})")
+    bnd = ell_bound(terms, qt, 40)
+    floor = launch_floor(dev)
+    log(f"  serve shape bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}); "
+        f"an empty kernel's launch-to-launch time {floor['c_loop_ms']:.5f} "
+        f"ms from C, {floor['ctypes_ms']:.5f} ms through ctypes (the "
+        f"practical floor of a launch)")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "device_ms": dms, "plain_device_ms": plain_dms, **bnd,
-            "library_ms": None, "shape": f"[{n_pad}x{width}] Q=4 T=32 k=40"}
+            "library_ms": None, "shape": f"[{n_pad}x{width}] Q=4 T=32 k=40",
+            "device_ms_by_pass": {kernel_name(k): v
+                                  for k, v in passes.items()},
+            **{f"hermetic_{k}": v for k, v in h.items()},
+            "hermetic_shape": "[1024x48] (212 live rows) Q=1 T=32 k=40",
+            "launch_floor": floor}
+
+
+def ell_bound(terms, qt, k: int) -> dict:
+    """K3: the slots' terms and impacts read once, the query terms and
+    weights, the [Q, k] scores and ids written once; a multiply-add per
+    (query, row, term)."""
+    nbytes = 8.0 * (terms.numel() + qt.numel() + qt.shape[0] * k)
+    return bound(2.0 * qt.numel() * terms.shape[0], nbytes)
+
+
+def launch_floor(dev) -> dict:
+    """An empty kernel's launch-to-launch time on the card (the library
+    of csrc/ell_topk.cu holds one): 2,000 launches from a C loop, and one
+    launch a call through ctypes as the wrappers make them, each by CUDA
+    events."""
+    import ctypes
+
+    import torch
+
+    from rag_dpo_tpu_torch.ops import _kernels
+
+    lib = _kernels.load("ell_topk")
+    lib.empty_launches.restype = ctypes.c_int
+    lib.empty_launches.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib.empty_launches(10, stream) == 0, "empty kernel launch")
+    c_ms = cuda_ms(lambda: lib.empty_launches(2000, stream), iters=3) / 2000
+    py_ms = cuda_ms(lambda: lib.empty_launches(1, stream), iters=2000)
+    return {"c_loop_ms": c_ms, "ctypes_ms": py_ms}
 
 
 def maxsim_bound(qv, q_mask, dv, d_mask) -> dict:
@@ -902,6 +958,28 @@ def check_fused_topk(dev, gen) -> dict:
                 **{f"serve_{k}": v for k, v in {**bnd, **vs}.items()},
                 "serve_device_ms": device_ms(
                     lambda: fused_topk(q, e, 40, penalty=pen), launches=2)})
+    # the hermetic replay's shape: one query of the trained tiny encoder's
+    # 64 dims against its 212 chunks padded to 1,024 bf16 rows, k 40
+    hrows, hpen = scale_rows(dev, gen, n=212)
+    he = hrows[:1024, :64].to(torch.bfloat16).contiguous()
+    hq = unit_queries(dev, gen, 1)[:, :64].to(torch.bfloat16).contiguous()
+    hpen = hpen[:1024]
+    herr, hties = compare(hq, he, hpen, 40, "hermetic")
+    hbnd = fused_topk_bound(1, 1024, 64, 40, 2)
+    hmeas = {"ms": cuda_ms(lambda: fused_topk(hq, he, 40, penalty=hpen),
+                           iters=200),
+             "device_ms": device_ms(
+                 lambda: fused_topk(hq, he, 40, penalty=hpen), launches=2),
+             "plain_ms": cuda_ms(
+                 lambda: fused_topk_plain(hq, he, 40, penalty=hpen)),
+             "max_abs_err": herr, **hbnd}
+    log(f"fused_topk [1x64]x[1024x64] bf16 k=40 (the hermetic replay's "
+        f"shape): max_abs_err={herr:.3g}, {hties} near-tie ids; kernel_ms="
+        f"{hmeas['ms']:.4f} (device {fmt_ms(hmeas['device_ms'])}) plain_ms="
+        f"{hmeas['plain_ms']:.4f}; bound {hbnd['bound_ms']:.6f} ms "
+        f"({hbnd['bound_by']})")
+    out.update({f"hermetic_{k}": v for k, v in hmeas.items()})
+    del hrows, he
     # K5 at the same shape (its recipe, per_seg 2): the strip to its twin
     kw = dict(penalty=pen, per_seg=2, **CAND_RECIPE)
     strip = seg_candidates(q, e, **kw)
@@ -1210,45 +1288,59 @@ def check_int8_floor(dev, seed: int) -> dict:
     log(f"int8 floor path: evals/bench_int8_matmul.run launched {launches}, "
         f"no twin: {json.dumps(line)}")
 
-    q_i8, e_i8 = bench.make_inputs(n, d, nq, seed + 7, dev)
-    lib_ms = cuda_ms(lambda: bench.library_block_max(q_i8, e_i8, block),
-                     iters=10)
-    out = {}
-    for name, upcast in bench.KERNELS.items():
-        def kernel(q=q_i8, e=e_i8):
-            return int8_block_max(q, e, block=block, upcast=upcast)
+    # the recipe's Q first (the unprefixed numbers), then Q 1 and 256 (q1,
+    # q256): each kernel bit for bit against the twin, twice, beside the
+    # library strip
+    out = {name: {} for name in bench.KERNELS}
+    _, e_i8 = bench.make_inputs(n, d, 1, seed + 7, dev)
+    for qn in (nq, 1, 256):
+        q_i8 = bench.make_inputs(1, d, qn, seed + 8 + qn, dev)[0]
+        lib_ms = cuda_ms(lambda: bench.library_block_max(q_i8, e_i8, block),
+                         iters=10)
+        for name, upcast in bench.KERNELS.items():
+            def kernel(q=q_i8, e=e_i8, upcast=upcast):
+                return int8_block_max(q, e, block=block, upcast=upcast)
 
-        got = kernel()
-        want = int8_block_max_plain(q_i8, e_i8, block=block, upcast=upcast)
-        err = float((got - want).abs().max())
-        check(torch.equal(got, want), f"{name}: differs from the twin by "
-              f"{err}")
-        check(torch.equal(kernel(), got), f"{name}: two runs differ")
-        del want
-        ms = cuda_ms(kernel, iters=10)
-        dms = device_ms(kernel, iters=5, launches=1)
-        plain_ms = cuda_ms(lambda: int8_block_max_plain(
-            q_i8, e_i8, block=block, upcast=upcast), iters=3, warmup=1)
-        bnd = int8_floor_bound(nq, n, d, block,
-                               BF16_FLOPS if upcast == "bf16" else INT8_OPS)
-        gbps = n * d / ms / 1e6
-        log(f"{name} [{nq}x{d}] x [{n}x{d}] int8, block {block} (strip "
-            f"{list(got.shape)}): bit for bit against the twin, the same "
-            f"bits twice; kernel_ms={ms:.4f} (device {fmt_ms(dms)}) = "
-            f"{gbps:.0f} GB/s (N·D / time); plain_ms={plain_ms:.4f}; "
-            f"library (torch._int_mm + amax) {lib_ms:.4f} ms; bound "
-            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) = "
-            f"{bnd['bound_ms'] / ms:.3f} of the kernel's time")
-        out[name] = {"launches": launches[name], "max_abs_err": err,
-                     "ms": ms, "device_ms": dms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "gbps": gbps,
-                     "entry_ms": line[f"{name}_ms"],
-                     "entry_library_ms": line["library_int8_mm_ms"], **bnd,
-                     "library_calls": "torch._int_mm(q, e.T) then amax over "
-                                      "the strided [Q, blocks, block/128, "
-                                      "128] view",
-                     "shape": f"[{nq}x{d}] x [{n}x{d}] int8, block {block}"}
-    del q_i8, e_i8
+            got = kernel()
+            want = int8_block_max_plain(q_i8, e_i8, block=block,
+                                        upcast=upcast)
+            err = float((got - want).abs().max())
+            check(torch.equal(got, want), f"{name} Q {qn}: differs from "
+                  f"the twin by {err}")
+            check(torch.equal(kernel(), got), f"{name} Q {qn}: two runs "
+                  "differ")
+            del want
+            ms = cuda_ms(kernel, iters=10)
+            dms = device_ms(kernel, iters=5)
+            plain_ms = cuda_ms(lambda: int8_block_max_plain(
+                q_i8, e_i8, block=block, upcast=upcast), iters=3, warmup=1)
+            bnd = int8_floor_bound(qn, n, d, block, BF16_FLOPS
+                                   if upcast == "bf16" else INT8_OPS)
+            gbps = n * d / ms / 1e6
+            log(f"{name} [{qn}x{d}] x [{n}x{d}] int8, block {block} (strip "
+                f"{list(got.shape)}): bit for bit against the twin, the "
+                f"same bits twice; kernel_ms={ms:.4f} (device {fmt_ms(dms)})"
+                f" = {gbps:.0f} GB/s (N·D / time); plain_ms={plain_ms:.4f}; "
+                f"library (torch._int_mm + amax) {lib_ms:.4f} ms = "
+                f"{lib_ms / ms:.3f}x the kernel's time; bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) = "
+                f"{bnd['bound_ms'] / ms:.3f} of the kernel's time")
+            meas = {"max_abs_err": err, "ms": ms, "device_ms": dms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "gbps": gbps, **bnd}
+            if qn == nq:
+                out[name].update({
+                    "launches": launches[name], **meas,
+                    "entry_ms": line[f"{name}_ms"],
+                    "entry_library_ms": line["library_int8_mm_ms"],
+                    "library_calls": "torch._int_mm(q, e.T) then amax over "
+                                     "the strided [Q, blocks, block/128, "
+                                     "128] view",
+                    "shape": f"[{qn}x{d}] x [{n}x{d}] int8, block {block}"})
+            else:
+                out[name][f"q{qn}"] = meas
+        del q_i8
+    del e_i8
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1425,9 +1517,10 @@ def check_former_limits(dev, gen) -> dict:
 def run_store_limits(seed: int, dev) -> dict:
     """A 50,000-row index at dim 1536, bf16 and int8, through the store's
     entry points: `search_dense(k=512)` and `search_sparse` with 100 terms.
-    The launch counters must rise and no twin may run; the bf16 top-512
-    holds the exact f32 top-512 of the device image (recall ≥ 0.99) and
-    the sparse top-40 is K3's twin's, exactly."""
+    K4 (bf16) and K3 must launch and no twin may run; the bf16 top-512
+    holds the exact f32 top-512 of the device image (recall ≥ 0.99), the
+    int8 top-512 is the CPU store's (ids and scores), and the sparse top-40
+    is K3's twin's, exactly."""
     import numpy as np
     import torch
 
@@ -1462,8 +1555,11 @@ def run_store_limits(seed: int, dev) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(_kernels.LAUNCHES)
-        dense_kernel = "pooled_max" if int8 else "fused_topk"
-        check(launches[dense_kernel] > 0 and launches["ell_topk"] > 0,
+        # the int8 arm's product is torch._int_mm: no kernel of the port
+        dense_kernel = "int8_product" if int8 else "fused_topk"
+        launches["int8_product"] = 0
+        check((int8 or launches[dense_kernel] > 0)
+              and launches["ell_topk"] > 0,
               f"store dim {dim} int8={int8}: launches {launches}")
         check(not any(_kernels.PLAIN_ON_CUDA.values()),
               f"store dim {dim} int8={int8}: a twin ran "
@@ -1477,8 +1573,17 @@ def run_store_limits(seed: int, dev) -> dict:
               and np.array_equal(ss, ws.cpu().numpy()),
               f"store dim {dim}: sparse top-40 is not K3's twin's")
         if int8:
-            recall = None  # approximate by design (C-14): recorded below
+            # int8 × int8 ranking and the host refine: the CPU's ids
+            cpu = DeviceIndex(IndexConfig(dim=dim, ell_width=24,
+                                          quantize_int8=True), device="cpu")
+            cpu.add(ids, dense, terms=terms, impacts=imps)
+            cs, ci = cpu.search_dense(q, 512)
+            check(np.array_equal(i, ci) and np.array_equal(s, cs),
+                  f"store dim {dim} int8: ids or scores differ from the "
+                  "CPU's")
+            recall = None  # approximate by design: the CPU's ids instead
             valid = int((i >= 0).sum())
+            del cpu
         else:
             qb = torch.from_numpy(q).to(dev).to(torch.bfloat16)
             qb = torch.nn.functional.pad(qb, (0, image["embs"].shape[1]
@@ -1495,8 +1600,8 @@ def run_store_limits(seed: int, dev) -> dict:
             f"launches {launches[dense_kernel]} {dense_kernel}, "
             f"{launches['ell_topk']} ell_topk, no twin; {valid} valid ids, "
             f"recall@512 vs the exact top-512 "
-            f"{'n/a (int8)' if recall is None else f'{recall:.5f}'}; sparse "
-            f"top-40 = K3's twin")
+            f"{'n/a (int8: the CPU ids)' if recall is None else f'{recall:.5f}'}"
+            f"; sparse top-40 = K3's twin")
         out["int8" if int8 else "bf16"] = {
             "launches": {dense_kernel: launches[dense_kernel],
                          "ell_topk": launches["ell_topk"]},
@@ -1615,11 +1720,10 @@ def run_scale(seed: int, dev) -> dict:
     for nq in (SCALE_BATCHES[0], SCALE_BATCHES[-1]):
         busy[nq], parts[nq] = profile_once(
             lambda b=batches[nq]: hybrid(*b), f"one batch-{nq} hybrid search",
-            timed[nq]["p50_ms"] / 1e3, show=("pooled", "topk", "Memcpy"))
-        if not parts[nq]["pooled"]:  # K6 ran, so the trace lost its events
-            log(f"profile: batch {nq}: no pooled_max event in the trace "
-                "(the profiler lost the kernel's events): busy share not "
-                "measured")
+            timed[nq]["p50_ms"] / 1e3, show=("gemm", "topk", "Memcpy"))
+        if not parts[nq]["gemm"]:  # the int8 product ran: events were lost
+            log(f"profile: batch {nq}: no int8 product in the trace (the "
+                "profiler lost its events): busy share not measured")
             busy[nq] = None
     # dense recall@10: the head of the int8 top-40 against exact top-10
     # from an index over the same host rows kept in f32 (K4 on the f16
@@ -1636,6 +1740,7 @@ def run_scale(seed: int, dev) -> dict:
     plain = dict(_kernels.PLAIN_ON_CUDA)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del exact_index
+    pooled = run_pooled_topk(image, dense, q256, ei, dev)
     device_refine = run_device_refine(refine, dense, ids,
                                       {nq: b[0] for nq, b in batches.items()},
                                       ei, reps, dev)
@@ -1667,7 +1772,44 @@ def run_scale(seed: int, dev) -> dict:
             "batch1_device_busy_share": busy[SCALE_BATCHES[0]],
             "batch256_device_busy_share": busy[SCALE_BATCHES[-1]],
             "device_parts": parts,
-            "device_refine": device_refine}
+            "device_refine": device_refine, "pooled_topk_int8": pooled}
+
+
+def run_pooled_topk(image, dense, queries, exact_ids, dev) -> dict:
+    """K6's own path on the scale image, with the counts from 0:
+    `pooled_topk_int8` (the reference's composition around K6, which no
+    store path calls in either package) at batch 256, k 40, refined against
+    the rows' f16 copy on the card; recall@10 of its head against the exact
+    f32 top-10 (K4)."""
+    import numpy as np
+    import torch
+
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.ops.pooled import pooled_topk_int8
+
+    e_ref = torch.from_numpy(dense).to(dev)
+    q = torch.from_numpy(queries).to(dev)
+    q = torch.nn.functional.pad(q, (0, image["embs_i8"].shape[1] - q.shape[1]))
+    e_ref = torch.nn.functional.pad(
+        e_ref, (0, image["embs_i8"].shape[1] - e_ref.shape[1]))
+    _kernels.reset_counts()
+    args = (q, image["embs_i8"], image["embs_scale"], e_ref, 40)
+    _, ids = pooled_topk_int8(*args, penalty=image["alive_penalty"])
+    torch.cuda.synchronize()
+    launches = _kernels.LAUNCHES["pooled_max"]
+    plain = dict(_kernels.PLAIN_ON_CUDA)
+    check(launches == 1 and not any(plain.values()),
+          f"pooled_topk_int8: launches {launches}, plain {plain}")
+    ms = cuda_ms(lambda: pooled_topk_int8(
+        *args, penalty=image["alive_penalty"]), iters=5)
+    ids = ids.cpu().numpy()
+    recall = float(np.mean([len(set(a[:10]) & set(b)) / 10
+                            for a, b in zip(ids, exact_ids)]))
+    log(f"scale: pooled_topk_int8 (K6's path) at batch {q.shape[0]}, k 40: "
+        f"{ms:.3f} ms, recall@10 {recall:.4f} against the exact f32 top-10; "
+        f"K6 launched {launches}x, no twin")
+    del e_ref
+    return {"launches": launches, "ms": ms, "recall_at_10": recall}
 
 
 def run_device_refine(index, dense, ids, queries: dict, exact_ids, reps: dict,
@@ -2193,12 +2335,13 @@ def kernel_name(mangled: str) -> str:
         return mangled
     j = i + m.end()
     name = mangled[j:j + int(m.group(1))]
-    t = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E",
+    t = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E|Lb[01]E)+)E",
                  mangled[j + int(m.group(1)):])
     if not t:
         return name
-    args = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(a, n) for a, n in
-            re.findall(r"(f|13__nv_bfloat16|Li(\d+)E)", t.group(1))]
+    args = [{"f": "f32", "13__nv_bfloat16": "bf16", "Lb0E": "false",
+             "Lb1E": "true"}.get(a, n) for a, n in
+            re.findall(r"(f|13__nv_bfloat16|Li(\d+)E|Lb[01]E)", t.group(1))]
     return f"{name}<{', '.join(args)}>"
 
 
@@ -2373,7 +2516,8 @@ def main() -> int:
          "instructions": "wgmma m64nNQk16 bf16, A from registers: the int8 "
                          "rows widened once a block in the lanes that "
                          "multiply them (csrc/widen_product.cuh)",
-         "launches": scale["launches"]["pooled_max"],
+         "launches": scale["pooled_topk_int8"]["launches"],
+         "path": "ops.pooled.pooled_topk_int8 on the scale image",
          **k6},
         {"name": "fused_candidates", "route": "cuda",
          "source": "rag_dpo_tpu_torch/csrc/seg_candidates.cu",
@@ -2389,7 +2533,10 @@ def main() -> int:
                "widened once a block in the lanes that multiply them, the "
                "int8 queries once a block into shared memory "
                "(csrc/widen_product.cuh)"),
-              ("int8_block_max_i8", 51, "mma.sync m16n8k32 s8"))),
+              ("int8_block_max_i8", 51,
+               "wgmma m64nNQk32 s32.s8.s8, both operands in 128-byte-"
+               "swizzled shared memory: the rows from the TMA ring of "
+               "csrc/widen_product.cuh, the queries resident or streamed"))),
     ]
     maxsim = path["maxsim"]
     log(json.dumps({"kernels": kernels, "build_s": build_s,

@@ -188,6 +188,84 @@ struct WidenCursor {
   }
 };
 
+// The ring in dynamic shared memory, 1024-aligned: `stages` slots (a box of
+// 128 rows × 128 bytes, then the streamed queries' boxes), the resident
+// query tile, then the full and the empty mbarrier of each slot. K6, K10
+// and K11 (csrc/int8_block_max.cu) share it and its producer.
+struct WidenRing {
+  uint8_t* slots;
+  uint8_t* resident_q;
+  uint64_t* full;
+  uint64_t* empty;
+  int stage_bytes;
+
+  __device__ __forceinline__ uint8_t* slot(int s) const {
+    return slots + s * stage_bytes;
+  }
+};
+
+__device__ __forceinline__ WidenRing widen_ring(uint8_t* raw, int stages,
+                                                int q_stage_bytes,
+                                                int resident_bytes) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(raw);
+  WidenRing r;
+  r.slots = raw + ((kSmemAlign - (at & (kSmemAlign - 1))) & (kSmemAlign - 1));
+  r.stage_bytes = kWRowStage + q_stage_bytes;
+  r.resident_q = r.slots + stages * r.stage_bytes;
+  r.full = reinterpret_cast<uint64_t*>(r.resident_q + resident_bytes);
+  r.empty = r.full + kWMaxStages;
+  return r;
+}
+
+// thread 0: a full barrier a slot counts the producer's arrival and the
+// bytes in, an empty one the eight consumer warps out
+__device__ __forceinline__ void widen_ring_init(const WidenRing& r,
+                                                int stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(r.full + s, 1);
+      mbar_init(r.empty + s, kWConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// The producer (lane 0 of the warp after the consumers): n_iter chunks in
+// the cursor's order, each the box of 128 rows at cur.row(w, 0) (none for
+// a tile wholly past N: zeros) and QBoxes boxes of QBoxBytes of the query
+// tile's rows from q0, 64 columns apart (K6: two of bf16, the second only
+// where D reaches it; K11 streamed: one of int8; resident: none). The
+// cursor has the members `c` (the chunk) and row(w, r), advance(w, walker,
+// chunks).
+template <int QBoxes, int QBoxBytes, class Cursor>
+__device__ __forceinline__ void widen_produce(const WidenRing& r,
+                                              const WidenArgs& w,
+                                              const CUtensorMap* map_e,
+                                              const CUtensorMap* map_q,
+                                              Cursor cur, int walker,
+                                              int n_iter, int chunks,
+                                              int q0) {
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % w.stages;
+    mbar_wait(r.empty + s, ((it / w.stages) & 1) ^ 1);
+    uint8_t* dst = r.slot(s);
+    const size_t row = cur.row(w, 0);
+    const bool rows_in = row < static_cast<size_t>(w.N);
+    const int n_q = QBoxes == 2 ? 1 + (cur.c * kWChunk + 64 < w.D) : QBoxes;
+    mbar_expect_tx(r.full + s,
+                   (rows_in ? kWRowStage : 0) + n_q * QBoxBytes);
+    if (rows_in)  // zeros past D and N; a tile wholly past N: no box
+      tma_load_2d(dst, map_e, r.full + s, cur.c * kWChunk,
+                  static_cast<int>(row));
+#pragma unroll
+    for (int h = 0; h < QBoxes; ++h)
+      if (h < n_q)
+        tma_load_2d(dst + kWRowStage + h * QBoxBytes, map_q, r.full + s,
+                    cur.c * kWChunk + 64 * h, q0);
+    cur.advance(w, walker, chunks);
+  }
+}
+
 // The sweep, by kWThreads threads: consumer warpgroups 0 and 1 (tile rows
 // 64·wg ...), the producer warp after them. The epilogue Epi (K6's or
 // K10's) supplies the tile's fold and the item's output:
@@ -208,15 +286,11 @@ __device__ __forceinline__ void widen_sweep(const WidenArgs& w,
   constexpr int kQChunk = widen_q_chunk(NQ);
   constexpr bool kResident = Epi::kInt8Queries;
   extern __shared__ __align__(16) uint8_t widen_raw[];
-  const uintptr_t raw = reinterpret_cast<uintptr_t>(widen_raw);
-  uint8_t* const ring = widen_raw + ((kSmemAlign - (raw & (kSmemAlign - 1))) &
-                                     (kSmemAlign - 1));
   const int chunks = (w.D + kWChunk - 1) / kWChunk;
-  const int stage_bytes = kWRowStage + (kResident ? 0 : kQChunk);
-  uint8_t* const resident_q = ring + w.stages * stage_bytes;
-  uint64_t* const full = reinterpret_cast<uint64_t*>(
-      resident_q + (kResident ? chunks * kQChunk : 0));
-  uint64_t* const empty = full + kWMaxStages;
+  const WidenRing ring = widen_ring(widen_raw, w.stages,
+                                    kResident ? 0 : kQChunk,
+                                    kResident ? chunks * kQChunk : 0);
+  uint8_t* const resident_q = ring.resident_q;
 
   const int tid = threadIdx.x;
   const int qtile = blockIdx.x % w.qtiles, walker = blockIdx.x / w.qtiles;
@@ -226,13 +300,7 @@ __device__ __forceinline__ void widen_sweep(const WidenArgs& w,
   const int n_iter = n_my * w.group * chunks;
   if (n_iter == 0) return;
 
-  if (tid == 0) {
-    for (int s = 0; s < w.stages; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, kWConsumers / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  widen_ring_init(ring, w.stages);
   // resident (int8) queries: the query tile widened once a block, its
   // columns in query_col order, by the consumers
   if (kResident && tid < kWConsumers) {
@@ -264,26 +332,8 @@ __device__ __forceinline__ void widen_sweep(const WidenArgs& w,
     if (tid != kWConsumers) return;
     WidenCursor cur;
     cur.start(w, walker);
-    for (int it = 0; it < n_iter; ++it) {
-      const int s = it % w.stages;
-      mbar_wait(empty + s, ((it / w.stages) & 1) ^ 1);
-      uint8_t* dst = ring + s * stage_bytes;
-      const size_t row = cur.row(w, 0);
-      const bool rows_in = row < static_cast<size_t>(w.N);
-      const bool q_box[2] = {!kResident,
-                             !kResident && cur.c * kWChunk + 64 < w.D};
-      mbar_expect_tx(full + s, (rows_in ? kWRowStage : 0) +
-                                   (q_box[0] + q_box[1]) * NQ * 128);
-      if (rows_in)  // zeros past D and N; a tile wholly past N: no box
-        tma_load_2d(dst, map_e, full + s, cur.c * kWChunk,
-                    static_cast<int>(row));
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (q_box[h])
-          tma_load_2d(dst + kWRowStage + h * NQ * 128, map_q, full + s,
-                      cur.c * kWChunk + 64 * h, q0);
-      cur.advance(w, walker, chunks);
-    }
+    widen_produce<kResident ? 0 : 2, NQ * 128>(ring, w, map_e, map_q, cur,
+                                               walker, n_iter, chunks, q0);
     return;
   }
 
@@ -309,8 +359,8 @@ __device__ __forceinline__ void widen_sweep(const WidenArgs& w,
         for (int i = 0; i < NQ / 2; ++i) acc[n][i] = 0.f;
       epi.tile_start(w, cur, r0);
     }
-    mbar_wait(full + s, (it / w.stages) & 1);
-    const uint8_t* rows = ring + s * stage_bytes;
+    mbar_wait(ring.full + s, (it / w.stages) & 1);
+    const uint8_t* rows = ring.slot(s);
     uint4 x[2][2];  // [half][row r0, r0 + 8]
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -349,7 +399,7 @@ __device__ __forceinline__ void widen_sweep(const WidenArgs& w,
     wgmma_wait_all();
 #pragma unroll
     for (int n = 0; n < NACC; ++n) fence_acc(acc[n]);
-    if (lane == 0) mbar_arrive(empty + s);  // the slot's bytes are read
+    if (lane == 0) mbar_arrive(ring.empty + s);  // the slot's bytes are read
     if (cur.c == chunks - 1) {  // the tile's sums are whole
 #pragma unroll
       for (int n = 1; n < NACC; ++n)
@@ -372,17 +422,18 @@ __device__ __forceinline__ int acc_query(int i, int t) {
   return 8 * (i >> 2) + 2 * t + (i & 1);
 }
 
-// The map of a [rows, D] row-major int8 matrix read in boxes of 128 rows ×
-// 128 bytes, 128-byte swizzled (the layout `wswz` reads), zeros outside.
-// D % 16 == 0 and a 16-byte-aligned pointer.
+// The map of a [rows, D] row-major int8 matrix read in boxes of box_rows
+// (128: a tile of rows; K11's streamed queries: its NQ) × 128 bytes,
+// 128-byte swizzled (the layout `wswz` reads), zeros outside. D % 16 == 0
+// and a 16-byte-aligned pointer.
 inline cudaError_t int8_rows_map(CUtensorMap* map, const void* ptr, int rows,
-                                 int D) {
+                                 int D, int box_rows = kWTileRows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D)};
-  const cuuint32_t box[2] = {kWChunk, kWTileRows};
+  const cuuint32_t box[2] = {kWChunk, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,

@@ -1,6 +1,7 @@
 """The 1M-chunk int8 + postings index's hybrid search under torch.profiler,
 in a process of its own, on one NVIDIA card: the card's busy share at
-batches 1 and 256 and K6's (`pooled_max`) device time in it.
+batches 1 and 256 and the int8 product's (`torch._int_mm`, the GEMM
+events) device time in it.
 
     python rag_dpo_tpu_torch/evals/profile_scale.py [--no-reload]
 
@@ -108,15 +109,15 @@ def main() -> int:
                       if e.device_type == DeviceType.CUDA
                       and e.key not in ranges]
             busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-            k6_ms = sum(e.self_device_time_total for e in events
-                        if "pooled_max" in e.key) / 1e3
+            gemm_ms = sum(e.self_device_time_total for e in events
+                          if "gemm" in e.key.lower()) / 1e3
             share = busy_ms / (p50 * 1e3)
             result[f"batch{nq}_run{run}"] = {
                 "p50_ms": p50 * 1e3, "device_busy_ms": busy_ms,
-                "busy_share": share, "pooled_max_ms": k6_ms}
+                "busy_share": share, "int8_product_ms": gemm_ms}
             print(f"batch {nq}, profile {run}: p50 {p50 * 1e3:.2f} ms, "
-                  f"device busy {busy_ms:.3f} ms = {share:.1%}, pooled_max "
-                  f"{k6_ms:.3f} ms; " + ", ".join(
+                  f"device busy {busy_ms:.3f} ms = {share:.1%}, int8 "
+                  f"product {gemm_ms:.3f} ms; " + ", ".join(
                       f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f}"
                       for e in sorted(events, key=lambda e:
                                       -e.self_device_time_total)[:5]),

@@ -17,11 +17,12 @@ Search engines:
 * dense, bf16: exact top-k with the lowest row first among ties
   (`ops.topk`: approx, exact = blocked, masked = penalty-folded approx),
   which on the card is the fused top-k kernel (K4);
-* dense, int8 (`quantize_int8`): the pooled-max sweep (`ops.pooled`, K6)
-  of bf16 queries over the int8 rows with the combined penalty, the best
-  4k groups, then an exact f32 re-score against the host f16 rows. The
-  reference ranks its candidates by int8 × int8 (ROADMAP C-14); both are
-  approximate by design, and `exact` does not apply;
+* dense, int8 (`quantize_int8`): the reference's default, step for step:
+  the queries quantized per row, their int8 × int8 scores against the
+  int8 rows × both scales + the combined penalty (`ops.quantize.
+  approx_topk_int8`), the best min(4k, n_pad) of them, then an exact f32
+  re-score against the host f16 rows. Approximate by design, and `exact`
+  does not apply;
 * dense, int8 with `device_refine`: the reference's on-card search, int8 ×
   int8 as it ranks (`ops.quantize`): the sweep's best 4k, re-scored
   against the dequantized int8 rows on the card, over the whole image at
@@ -48,19 +49,22 @@ import numpy as np
 import torch
 
 from ..ops import approx_topk, blocked_topk, default_device
-from ..ops import pooled, topk
-from ..ops.pooled import pooled_group_max
+from ..ops import topk
 from ..ops.postings import PostingsIndex, postings_candidates_topk
 from ..ops.quantize import (
+    approx_topk_int8,
     approx_topk_int8_blockscan,
     approx_topk_int8_selfrefined,
     quantize_rows,
 )
 from ..ops.sparse import ell_scores, ell_topk
-from ..ops.topk import _sort_desc, pad_columns
+from ..ops.topk import pad_columns
 from .metadata import MetadataStore, compile_filter
 
 NEG_INF = -1e30
+# the int8 image's column multiple: `torch._int_mm` reads D in multiples of
+# 8, and the int8 kernels (`ops.int8_matmul`, `ops.pooled`) in 16
+INT8_COL_MULTIPLE = 16
 # device_refine's live [Q, n_pad] score budget before the sweep goes by row
 # blocks: the reference's (store.py:641-643)
 SCORE_BUDGET = 512 * 1024 * 1024
@@ -319,9 +323,9 @@ class DeviceIndex:
         return s, i
 
     def _col_multiple(self) -> int:
-        """The column multiple of the device image: the D that the kernel
-        reading it (K6 for int8, K4 otherwise) loads whole."""
-        return (pooled.COL_MULTIPLE if self.config.quantize_int8
+        """The column multiple of the device image: what the int8 product
+        (int8) or K4 (otherwise) reads whole."""
+        return (INT8_COL_MULTIPLE if self.config.quantize_int8
                 else topk.COL_MULTIPLE)
 
     def _queries(self, queries, dtype=None):
@@ -360,21 +364,23 @@ class DeviceIndex:
         return self._strip_dead(s, i, k)
 
     def _int8_dense(self, queries, k: int, mask, dev):
-        """Int8 search; filters fold into the penalty. The pooled sweep
-        (K6) keeps the max of every strided group of 64 rows; the best
-        min(4k, groups) groups are re-scored exactly on the host. With
+        """Int8 search; filters fold into the penalty. The reference's
+        default (`rag_dpo_tpu/index/store.py::_int8_dense`): the queries
+        quantized per row, the int8 × int8 sweep's best min(4k, n_pad)
+        (`approx_topk_int8`, one pass), re-scored exactly on the host. The
+        zero columns of the image and of the padded queries change neither
+        a query's scale (its max |x|) nor any product. With
         `device_refine`, the reference's on-card int8 × int8 search."""
         qf32 = np.asarray(queries, np.float32)
         penalty = self._combined_penalty(mask, dev)
         if self.config.device_refine:
             return self._device_refine(qf32, k, penalty, dev)
-        q = self._queries(qf32, torch.bfloat16)
-        pv, pi = pooled_group_max(q, dev["embs_i8"], dev["embs_scale"],
-                                  penalty)
-        kk = min(4 * k, pv.shape[1])
-        cvals, pos = _sort_desc(pv.float())
-        s = _host(cvals[:, :kk])
-        i = _host(torch.gather(pi, 1, pos[:, :kk]))
+        q_i8, q_scale = quantize_rows(self._queries(qf32, torch.float32))
+        kk = min(4 * k, dev["n_pad"])
+        s, i = approx_topk_int8(q_i8, q_scale, dev["embs_i8"],
+                                dev["embs_scale"], kk, oversample=1,
+                                penalty=penalty)
+        s, i = _host(s), _host(i)
         ok = (i >= 0) & (i < self.n_rows) & (s > -5e3)
         return self._host_refine(qf32, s, i, ok, k)
 

@@ -56,9 +56,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # dtype, q, k, v, lengths, out, lse, B, H, S, Dh, scale, stream
     "flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # terms, impacts, q_terms, q_weights, N, L, Q, T, k,
-    # cand_s, cand_i, out_s, out_i, stream
-    "ell_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # terms, impacts, q_terms, q_weights, N, L, Q, T, k, scratch, out_s,
+    # out_i, stream
+    "ell_topk": [_P, _P, _P, _P, *[_I] * 5, _P, _P, _P, _P],
     # dtype, q, k, v, dout, lengths, lse, dd, dq, B, H, S, Dh, scale, stream
     "flash_bwd_dq": [_I, *[_P] * 8, _I, _I, _I, _I, _F, _P],
     # dtype, q, k, v, dout, lengths, lse, dd, dk, dv, B, H, S, Dh, scale,
@@ -77,8 +77,8 @@ SIGNATURES = {
     "fused_candidates": [_I, _P, _P, _P, *[_I] * 10, _P, _P, _P, _P, _P],
     # q_i8, e_i8, Q, N, D, block, nq, stages, out, stream
     "int8_block_max_bf16": [_P, _P, *[_I] * 6, _P, _P],
-    # q_i8, e_i8, Q, N, D, block, out, stream
-    "int8_block_max_i8": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # q_i8, e_i8, Q, N, D, block, nq, stages, resident, out, stream
+    "int8_block_max_i8": [_P, _P, *[_I] * 7, _P, _P],
 }
 
 _lock = threading.Lock()

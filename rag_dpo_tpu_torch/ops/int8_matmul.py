@@ -20,24 +20,80 @@ so at D ≤ 1024 the two give the same bits. The plain twin computes the exact
 integer function (in f64, exact for any D that int32 holds) for both.
 
 On CUDA tensors `int8_block_max` launches the hand-written kernels of
-`csrc/int8_block_max.cu`: K10 on the int8-widening product it shares with
-K6 (`csrc/widen_product.cuh`: each int8 element widened to bf16 once a
-block, bf16 wgmma; `ops/widen_product.py`'s plan for int8 queries), K11
-on mma.sync s8; on CPU tensors it runs `int8_block_max_plain`. Nothing in
-either package's search path calls them: they measure the floor that K6's
-sweep and the store's `device_refine` are held against.
+`csrc/int8_block_max.cu`, both on the TMA ring of `csrc/widen_product.cuh`:
+K10 on the int8-widening product it shares with K6 (each int8 element
+widened to bf16 once a block, bf16 wgmma; `ops/widen_product.py`'s plan for
+int8 queries), K11 on s8 wgmma with both operands in shared memory
+(`i8_plan`: 8 to 128 queries a block, their tile resident or streamed); on
+CPU tensors it runs `int8_block_max_plain`. Nothing in either package's
+search path calls them: they measure the floor of an int8 sweep, which the
+store's int8 × int8 arm and K6 are held against.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from . import _kernels
 from .topk import pad_columns
-from .widen_product import COL_MULTIPLE, widen_plan
+from .widen_product import (
+    BARRIERS,
+    CHUNK,
+    COL_MULTIPLE,
+    MAX_SMEM,
+    MAX_STAGES,
+    ROW_STAGE,
+    SMEM_ALIGN,
+    widen_plan,
+)
 
 LANES = 128        # the strip's columns a block: the TPU kernel's lane width
 UPCASTS = {"bf16": "int8_block_max_bf16", "int8": "int8_block_max_i8"}
+I8_WIDTHS = (8, 16, 32, 64, 128)   # K11's queries a block (wgmma's N)
+I8_MIN_RESIDENT_STAGES = 4         # a shallower ring streams the queries
+
+
+@dataclass(frozen=True)
+class I8Plan:
+    nq: int          # queries a block
+    stages: int
+    resident: bool   # the query tile staged once a block, all of D
+    chunks: int      # 128-byte chunks of D
+
+    @property
+    def smem(self) -> int:
+        return i8_smem(self.nq, self.stages, self.resident, self.chunks)
+
+
+def i8_smem(nq: int, stages: int, resident: bool, chunks: int) -> int:
+    """K11's dynamic shared bytes (`i8_smem` in the source): the ring's
+    slots (rows, + the streamed query box), the resident tile, the
+    barriers, the alignment slack."""
+    q_tile = nq * CHUNK
+    return (SMEM_ALIGN + stages * (ROW_STAGE + (0 if resident else q_tile))
+            + (chunks * q_tile if resident else 0) + BARRIERS)
+
+
+def i8_plan(q: int, d: int) -> I8Plan:
+    """K11's plan for Q queries of D columns (padded to 16): the smallest
+    wgmma width of `I8_WIDTHS` that holds Q, else 128 (ceil(Q / 128) query
+    tiles); the query tile resident where it fits beside a ring of
+    `I8_MIN_RESIDENT_STAGES`, else streamed beside the rows (any D); the
+    deepest ring (up to 8 stages) that fits."""
+    if q < 1 or d < 1:
+        raise ValueError(f"i8_plan takes Q ≥ 1 and D ≥ 1, got {q}, {d}")
+    chunks = -(-(-(-d // COL_MULTIPLE) * COL_MULTIPLE) // CHUNK)
+    nq = next((n for n in I8_WIDTHS if n >= q), I8_WIDTHS[-1])
+
+    def stages(resident: bool) -> int:  # streamed: 7 at NQ 128, any D
+        stage = ROW_STAGE + (0 if resident else nq * CHUNK)
+        return min(MAX_STAGES,
+                   (MAX_SMEM - i8_smem(nq, 0, resident, chunks)) // stage)
+
+    resident = stages(True) >= I8_MIN_RESIDENT_STAGES
+    return I8Plan(nq, stages(resident), resident, chunks)
 
 
 def _kernel_name(block: int, upcast: str) -> str:
@@ -95,10 +151,12 @@ def _int8_block_max_kernel(q_i8, e_i8, block: int, name: str):
         else x.clone(memory_format=torch.contiguous_format)
         for x in (q_i8, e_i8))
     d = q_i8.shape[1]
-    plan = ()
     if name == UPCASTS["bf16"]:  # the widening product's plan
         p = widen_plan(q, d, int8_queries=True)
         plan = (p.nq, p.stages)
+    else:
+        p = i8_plan(q, d)
+        plan = (p.nq, p.stages, int(p.resident))
     lib = _kernels.load(name)
     with torch.cuda.device(e_i8.device):
         err = getattr(lib, name)(
@@ -114,8 +172,9 @@ def int8_block_max(q_i8, e_i8, *, block: int = 2048, upcast: str):
     max of each block's strided groups (see the module docstring).
 
     Any Q ≥ 1 and any D (on CUDA, K10's D ≤ 6144: its query tile stays in
-    shared memory; past it ValueError); on CUDA a D that is not a multiple
-    of 16 is padded with zero columns (a copy that changes no product).
+    shared memory; past it ValueError; K11 streams its queries past what
+    fits); on CUDA a D that is not a multiple of 16 is padded with zero
+    columns (a copy that changes no product).
     `block` must be a multiple of 128; rows past the last whole block are
     not read."""
     name = _kernel_name(block, upcast)

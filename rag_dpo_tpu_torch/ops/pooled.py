@@ -1,4 +1,4 @@
-"""Pooled-max dense sweep over int8 rows: the int8 arm's candidate generator.
+"""Pooled-max dense sweep over int8 rows, a candidate generator.
 
 `pooled_group_max` is the port of the JAX package's Pallas
 `pooled_group_max` (K6): bf16 queries against int8 rows widened in the
@@ -15,7 +15,9 @@ tensors it runs `pooled_group_max_plain`. The reference's
 
 `pooled_topk_int8` is the reference's composition around the kernel: a
 cut of the pooled strip (a stable descending sort here, where the
-reference runs `approx_max_k`) and an exact re-score of the survivors.
+reference runs `approx_max_k`) and an exact re-score of the survivors. As
+in the reference, no store path calls it: the store's int8 arm ranks by
+int8 × int8 scores (`ops.quantize`).
 """
 
 from __future__ import annotations

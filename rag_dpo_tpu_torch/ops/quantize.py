@@ -27,9 +27,9 @@ scores a cut keeps.
 * `dequant_refine`: an exact re-score of given candidates against the
   dequantized rows.
 
-The store's `device_refine` runs the self-refined and block-scanned searches
-(`index/store.py`); the host refine stays its default, and its sweep is K6
-(`ops/pooled.py`, ROADMAP C-14).
+The store's default int8 arm runs `approx_topk_int8` (then its host refine),
+and `device_refine` the self-refined and block-scanned searches
+(`index/store.py`), as the reference's store does.
 """
 
 from __future__ import annotations

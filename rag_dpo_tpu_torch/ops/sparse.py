@@ -9,13 +9,16 @@
 tensors it launches the hand-written kernel in `csrc/ell_topk.cu`, on CPU
 tensors it runs `ell_topk_plain`. Both return the reference's exact top-k,
 including its order among equal scores (`topk.streaming_topk_reference`);
-zero-score rows stay ranked and fill the remaining slots.
+zero-score rows stay ranked and fill the remaining slots. The kernel ranks
+rows by one unique 64-bit key each, whose host mirror is `ell_order_keys`.
 
 `ell_scores` (full [Q, N] scores, for the masked search path) is plain
 torch, as in the JAX package, where it is an XLA scan.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -71,13 +74,44 @@ def ell_topk_plain(doc_terms, doc_impacts, q_terms, q_weights, k: int,
     return streaming_topk_reference(s, min(k, n), block_n=block_n, n_valid=n)
 
 
+def ell_order_keys(scores, *, block_n: int = 1024, seg: int = 128):
+    """The ELL kernel's selection key of every row, on the host: [Q, N]
+    scores → [Q, N] int64 keys, unique in a query, whose descending order
+    is the reference's streaming order (`streaming_topk_reference`).
+
+    The key is the kernel's unsigned 64-bit one with its top bit flipped
+    (so that int64 compares as it does): above, the f32 score's bits made
+    order-preserving, −0.0 as +0.0 (the reference's compare holds them
+    equal); below, the complement of block·block_n + round·(block_n / seg)
+    + segment, where a row's round is its rank inside its segment by
+    (score desc, row asc). Rows past N count as −1e30, as in the kernel."""
+    q, n = scores.shape
+    n_pad = -(-n // block_n) * block_n
+    s = torch.full((q, n_pad), NEG_INF, dtype=torch.float32,
+                   device=scores.device)
+    s[:, :n] = scores.float()
+    bits = (s + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    # the kernel's order bits, less 2^31: the key's top bit flipped
+    order = torch.where(bits >> 31 == 1, bits ^ 0xFFFFFFFF,
+                        bits ^ 0x80000000) - (1 << 31)
+    col = torch.arange(n_pad, device=scores.device)
+    # round: the rank inside the segment by (score desc, row asc)
+    seg_key = (order << 32) | ((n_pad - 1) - col)[None, :]
+    rank = torch.argsort(torch.argsort(
+        seg_key.reshape(q, n_pad // seg, seg), dim=2, descending=True),
+        dim=2)
+    tie = ((col // block_n) * block_n + rank.reshape(q, n_pad)
+           * (block_n // seg) + (col % block_n) // seg)
+    return ((order << 32) | (0xFFFFFFFF - tie))[:, :n]
+
+
 def _ell_inputs(doc_terms, doc_impacts, q_terms, q_weights, k: int,
                 block_n: int) -> list:
     """What the ELL kernel refuses (ValueError), or its four inputs as it
     takes them (int32 / f32, contiguous). Any number of query terms runs
-    (the kernel matches them 64 at a time, its sum still in t order), and
-    any k up to N: blocks keep min(k, 1024) rows each and pass 2 merges
-    them with the running top-k of K4."""
+    (the kernel matches them 32 at a time, its sum still in t order), and
+    any k up to N: blocks keep min(k, 1024) rows each and a second pass
+    merges them by rank."""
     n, l = doc_terms.shape
     q, t = q_terms.shape
     if block_n != 1024:
@@ -95,7 +129,11 @@ def _ell_inputs(doc_terms, doc_impacts, q_terms, q_weights, k: int,
                      (q_terms, torch.int32), (q_weights, torch.float32)):
         if x.device != dev:
             raise ValueError("ELL inputs must share one device")
-        args.append(x.to(dtype).contiguous())
+        # checked, not converted, where they already fit: a search's host
+        # time counts at these sizes (evals/probe_ell.py, `host_us`)
+        if x.dtype != dtype or not x.is_contiguous():
+            x = x.to(dtype).contiguous()
+        args.append(x)
     return args
 
 
@@ -105,17 +143,19 @@ def _ell_topk_kernel(doc_terms, doc_impacts, q_terms, q_weights, k: int,
                        block_n)
     (n, l), (q, t) = doc_terms.shape, q_terms.shape
     dev = doc_terms.device
-    nb, kb = -(-n // block_n), min(k, block_n)
-    cand_s = torch.empty((q, nb, kb), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((q, nb, kb), dtype=torch.int32, device=dev)
+    nb = -(-n // block_n)
+    # one block needs no second pass, and no scratch
+    scratch = (torch.empty(12 * q * nb * min(k, block_n), dtype=torch.uint8,
+                           device=dev) if nb > 1 else None)
     out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     lib = _kernels.load("ell_topk")
-    with torch.cuda.device(dev):
+    # the device is switched only where it is not the current one
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
         err = lib.ell_topk(
-            *(_kernels.ptr(x) for x in args), n, l, q, t, k,
-            _kernels.ptr(cand_s), _kernels.ptr(cand_i),
-            _kernels.ptr(out_s), _kernels.ptr(out_i),
+            *(x.data_ptr() for x in args), n, l, q, t, k,
+            _kernels.ptr(scratch), out_s.data_ptr(), out_i.data_ptr(),
             _kernels.stream_of(doc_terms))
     _kernels.check(lib, err, "ell_topk")
     _kernels.LAUNCHES["ell_topk"] += 1

@@ -278,10 +278,23 @@ def _ell_case(rng, n, l, q, t, vocab):
     (2048, 32, 4, 32, 5000, 40),  # the sparse arm's widths
     (30, 4, 2, 3, 10, 10),        # one partial block
     (5000, 16, 1, 1, 100, 1024),  # k = block
-    (3000, 24, 1, 100, 400, 40),  # 100 terms: two chunks of the t loop
+    (3000, 24, 1, 100, 400, 40),  # 100 terms: four chunks of the t loop
     (2048, 32, 1, 128, 5000, 40),  # the most the store sends to ELL
     (5000, 16, 2, 8, 100, 2048),  # k > 1024: every row of a block kept
     (99_000, 8, 1, 8, 2000, 1024),  # 97 blocks × 1024 candidates to merge
+    (17_408, 32, 4, 32, 4000, 40),  # the serve shape
+    (1024, 48, 1, 32, 1500, 40),  # the hermetic replay's: one launch
+    (5000, 16, 2, 1, 50, 40),     # T 1: the chain's w0·h0
+    (5000, 16, 2, 33, 300, 40),   # T 33: a second chunk of one term
+    (3000, 24, 1, 64, 400, 40),   # T 64: two whole chunks
+    (3000, 24, 1, 65, 400, 40),
+    (3000, 8, 3, 6, 50, 1),       # k 1
+    (5000, 16, 1, 8, 100, 1025),  # k past a block
+    (3000, 8, 2, 6, 50, 3000),    # k = N, N off 1024
+    (1000, 8, 2, 6, 50, 1000),    # k = N, one block, N off 128
+    (17_408, 32, 1, 32, 4000, 17_408),  # k = N at the serve width
+    (3000, 6, 2, 4, 50, 40),      # L off 4: the slots read one by one
+    (2000, 7, 1, 5, 30, 300),
 ])
 def test_ell_kernel_matches_plain_ids_exact(dev, n, l, q, t, vocab, k):
     rng = np.random.default_rng(n + k)
@@ -293,7 +306,49 @@ def test_ell_kernel_matches_plain_ids_exact(dev, n, l, q, t, vocab, k):
     ps, pi = ell_topk_plain(*args, k)
     torch.cuda.synchronize()
     assert torch.equal(ki, pi)
-    assert torch.equal(ks, ps)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    ks2, ki2 = ell_topk(*args, k=k)
+    assert torch.equal(ki2, ki) and torch.equal(ks2, ks)
+
+
+@pytest.mark.parametrize("n,k", [(5000, 40), (5000, 1025), (1024, 1024),
+                                 (2900, 2900)])
+def test_ell_kernel_keeps_the_tie_order(dev, n, k):
+    """Scores of few values (two slots of three terms, unit impacts): ties
+    across blocks, rounds and segments everywhere; all-zero rows; the
+    reference's order (block, round, segment) exactly."""
+    rng = np.random.default_rng(n + k)
+    terms = rng.integers(-1, 3, (n, 2)).astype(np.int32)
+    terms[:, 1] = np.where(terms[:, 1] == terms[:, 0], -1, terms[:, 1])
+    terms[rng.random(n) < 0.3] = -1          # all-zero rows
+    imps = np.where(terms >= 0, 1.0, 0.0).astype(np.float32)
+    qt = np.asarray([[0, 1, 2], [2, -2, -2]], np.int32)
+    qw = np.asarray([[1.0, 0.5, 0.5], [2.0, 0.0, 0.0]], np.float32)
+    args = [torch.from_numpy(x).to(dev) for x in (terms, imps, qt, qw)]
+    ks, ki = ell_topk(*args, k=k)
+    ps, pi = ell_topk_plain(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+
+
+def test_ell_kernel_ranks_minus_zero_as_zero(dev):
+    """Negative weights: a row that matches no term scores fma(w0, 0, w1·0)
+    = −0.0; it ties with +0.0 rows, and comes out +0.0, the twin's bits."""
+    from rag_dpo_tpu_torch.ops.sparse import ell_scores
+
+    rng = np.random.default_rng(11)
+    terms, imps, qt, qw = _ell_case(rng, 3000, 8, 2, 6, 200)
+    qw = -np.abs(qw)
+    qw[1, 3:] = np.abs(qw[1, 3:])            # signs mixed in query 1
+    args = [torch.from_numpy(x).to(dev) for x in (terms, imps, qt, qw)]
+    scores = ell_scores(*args)
+    assert bool((scores.view(torch.int32) == -2**31).any())  # −0.0 rows
+    ks, ki = ell_topk(*args, k=2000)
+    ps, pi = ell_topk_plain(*args, 2000)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
 
 
 def test_ell_kernel_tie_probes(dev):
@@ -786,8 +841,10 @@ def test_pooled_kernel_rejects_what_it_does_not_take(dev):
 
 
 def test_int8_store_on_the_card_matches_the_cpu(dev):
-    """The int8 arm on the card launches K6 (and K4 nowhere), runs no
-    twin, and returns the CPU's ids and exactly refined scores."""
+    """The default int8 arm on the card ranks by int8 × int8 as the CPU does
+    (ROADMAP C-14): it launches no kernel of the port (the product is
+    `torch._int_mm`), runs no twin, and returns the CPU's ids and exactly
+    refined scores."""
     from rag_dpo_tpu_torch.index import DeviceIndex, IndexConfig
 
     rng = np.random.default_rng(6)
@@ -807,20 +864,17 @@ def test_int8_store_on_the_card_matches_the_cpu(dev):
         idx.add(ids, dense, terms=terms, impacts=imps)
         idx.delete(ids[::50])
         before = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_ON_CUDA)
-        out[str(device)] = (idx.search_dense(q, 40),
-                            idx.search_sparse(qt, qw, 40))
-    assert _kernels.LAUNCHES["pooled_max"] == before[0]["pooled_max"] + 1
-    assert _kernels.LAUNCHES["fused_topk"] == before[0]["fused_topk"]
+        dense_out = idx.search_dense(q, 40)
+        after = dict(_kernels.LAUNCHES)
+        out[str(device)] = (dense_out, idx.search_sparse(qt, qw, 40))
+    assert after == before[0]
     assert _kernels.PLAIN_ON_CUDA == before[1]
     (cs, ci), (css, csi) = out["cpu"]
     (gs, gi), (gss, gsi) = out[str(dev)]
-    # K6 and its CPU twin may round a pooled value one bf16 ulp apart,
-    # which can move a candidate across the 4k cut: recall, and the same
-    # exactly refined score wherever the ids agree
-    recall = np.mean([len(set(a) & set(b)) / 40 for a, b in zip(gi, ci)])
-    assert recall >= 0.99
-    same = gi == ci
-    np.testing.assert_array_equal(gs[same], cs[same])
+    # integer products, then the same f32 scale and penalty passes: the same
+    # candidates on both devices, refined by the same host code
+    np.testing.assert_array_equal(gi, ci)
+    np.testing.assert_array_equal(gs, cs)
     # the postings engine adds in float64: the same bits on both devices
     np.testing.assert_array_equal(gsi, csi)
     np.testing.assert_array_equal(gss, css)
@@ -988,9 +1042,10 @@ def test_store_past_former_limits_on_the_card_matches_the_cpu(dev, dim,
                                                               int8):
     """ROADMAP C-17 at the store: dim 1536 and 1000 (zero columns padded
     into the image), search_dense at k 512 and search_sparse with 100
-    terms go through K4 or K6 and K3 on the card, no twin, and agree with
-    the CPU store (bf16: scores within 1e-5 and ids but near-ties; int8:
-    recall, as in the int8 test above; ELL: ids and scores exact)."""
+    terms go through K4 (bf16; the int8 arm's product is torch._int_mm)
+    and K3 on the card, no twin, and agree with the CPU store (bf16: scores
+    within 1e-5 and ids but near-ties; int8 and ELL: ids and scores
+    exact)."""
     from rag_dpo_tpu_torch.index import DeviceIndex, IndexConfig
 
     rng = np.random.default_rng(dim)
@@ -1012,21 +1067,18 @@ def test_store_past_former_limits_on_the_card_matches_the_cpu(dev, dim,
         before = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_ON_CUDA)
         out[str(device)] = (idx.search_dense(q, 512),
                             idx.search_sparse(qt, qw, 40))
-    dense_kernel = "pooled_max" if int8 else "fused_topk"
-    assert _kernels.LAUNCHES[dense_kernel] == before[0][dense_kernel] + 1
+    assert (_kernels.LAUNCHES["fused_topk"]
+            == before[0]["fused_topk"] + (not int8))
+    assert _kernels.LAUNCHES["pooled_max"] == before[0]["pooled_max"]
     assert _kernels.LAUNCHES["ell_topk"] == before[0]["ell_topk"] + 1
     assert _kernels.PLAIN_ON_CUDA == before[1]
     (cs, ci), (css, csi) = out["cpu"]
     (gs, gi), (gss, gsi) = out[str(dev)]
     np.testing.assert_array_equal(gsi, csi)
     np.testing.assert_array_equal(gss, css)
-    if int8:
-        # the sweep keeps one row of each of 384 groups: fewer candidates
-        # than k, and both devices return the same valid ones
-        recall = np.mean([len(set(a) & set(b) - {-1}) / len(set(b) - {-1})
-                          for a, b in zip(gi, ci)])
-        assert recall >= 0.99
-        np.testing.assert_array_equal((gi >= 0).sum(1), (ci >= 0).sum(1))
+    if int8:  # integer products, the same f32 passes and host refine
+        np.testing.assert_array_equal(gi, ci)
+        np.testing.assert_array_equal(gs, cs)
         return
     assert np.abs(gs - cs).max() <= NEAR_TIE
     differ = gi != ci
@@ -1099,6 +1151,72 @@ def test_int8_block_max_bf16_equals_i8_at_the_extremes(dev):
     assert float(bf16[0, 0]) == 2.0 ** 24
     assert torch.equal(bf16, i8)
     assert torch.equal(i8, want.amax(2).reshape(16, 2048).float())
+
+
+@pytest.mark.parametrize("q", [1, 8, 17, 64, 65, 128, 129, 256, 300])
+@pytest.mark.parametrize("d", [16, 48, 1000, 1024, 1536, 8192])
+def test_k11_matches_plain_at_every_width(dev, q, d):
+    """K11 over N off the block at blocks of 128, 2048 and 4096 (in turn by
+    D): every query width and tile count, resident and streamed queries,
+    blocks shared by walkers (the strip's atomic max) and not; bit for bit,
+    the same bits twice."""
+    from rag_dpo_tpu_torch.ops.int8_matmul import (
+        int8_block_max,
+        int8_block_max_plain,
+    )
+
+    block = (128, 2048, 4096)[d % 3]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(q * 7 + d)
+    q_i8 = _uniform_int8(gen, dev, (q, d))
+    e_i8 = _uniform_int8(gen, dev, (3 * block + 77, d))
+    before = _kernels.LAUNCHES["int8_block_max_i8"]
+    got = int8_block_max(q_i8, e_i8, block=block, upcast="int8")
+    assert _kernels.LAUNCHES["int8_block_max_i8"] == before + 1
+    want = int8_block_max_plain(q_i8, e_i8, block=block, upcast="int8")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(int8_block_max(q_i8, e_i8, block=block,
+                                      upcast="int8"), got)
+
+
+@pytest.mark.parametrize("q,d", [(1, 8192), (64, 1024), (256, 1024),
+                                 (300, 1536)])
+def test_k11_at_the_extremes(dev, q, d):
+    """±127 and −128 only: the largest sums K11 meets (past 2^24 at D >
+    1024, exact in int32, the same f32 cast as the twin's)."""
+    from rag_dpo_tpu_torch.ops.int8_matmul import (
+        int8_block_max,
+        int8_block_max_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(q + d)
+    pick = torch.randint(0, 3, (q + 4096 + 50, d), generator=gen, device=dev)
+    vals = torch.tensor([-128, -127, 127], dtype=torch.int8, device=dev)[pick]
+    q_i8, e_i8 = vals[:q].clone(), vals[q:].clone()
+    e_i8[5] = q_i8[0]                 # a product at its largest
+    got = int8_block_max(q_i8, e_i8, block=2048, upcast="int8")
+    want = int8_block_max_plain(q_i8, e_i8, block=2048, upcast="int8")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_i8_plans_match_the_kernels_shared_memory(dev):
+    """ops/int8_matmul.py sizes K11's shared memory on the CPU; the library
+    computes it again from the same plan (`i8_sweep_smem`)."""
+    import ctypes
+
+    from rag_dpo_tpu_torch.ops.int8_matmul import i8_plan
+
+    lib = _kernels.load("int8_block_max_i8")
+    lib.i8_sweep_smem.restype = ctypes.c_int
+    lib.i8_sweep_smem.argtypes = [ctypes.c_int] * 4
+    for q in (1, 8, 17, 64, 65, 128, 256, 300):
+        for d in (16, 48, 1000, 1024, 1536, 3072, 8192):
+            p = i8_plan(q, d)
+            assert lib.i8_sweep_smem(p.nq, p.stages, int(p.resident),
+                                     p.chunks) == p.smem, (q, d)
 
 
 def test_int8_block_max_rejects_what_it_does_not_take(dev):

@@ -182,3 +182,39 @@ def test_k10_plan_of_every_shape(q, d):
     assert 2 <= p.stages <= wp.MAX_STAGES and p.smem <= wp.MAX_SMEM
     assert p.stages == wp.MAX_STAGES or wp.smem_bytes(
         p.nq, p.stages + 1, True, p.chunks) > wp.MAX_SMEM
+
+
+# (Q, D) of every K11 case of tests/test_torch_cuda.py, chip_smoke.py and
+# evals/bench_int8_matmul.py
+K11_CUDA_SHAPES = [
+    (q, d) for q in (1, 8, 17, 64, 65, 128, 129, 256, 300)
+    for d in (16, 48, 1000, 1024, 1536, 8192)]
+
+
+@pytest.mark.parametrize("q,d", K11_CUDA_SHAPES)
+def test_k11_plan_of_every_shape(q, d):
+    """K11's query tile: the narrowest wgmma width of 8, 16, 32, 64 or 128
+    that holds Q (past 128, tiles of 128), resident in shared memory where
+    it fits beside a ring of four stages, else streamed beside the rows;
+    the ring as deep as what is left allows, 2 to 8 stages, within the
+    block's shared memory."""
+    from rag_dpo_tpu_torch.ops import int8_matmul as im
+
+    p = im.i8_plan(q, d)
+    assert p.nq == min(n for n in im.I8_WIDTHS if n >= min(q, 128))
+    assert p.chunks == -(-(-(-d // 16) * 16) // 128)
+    assert 2 <= p.stages <= 8 and p.smem <= 232_448
+    deeper = im.i8_smem(p.nq, p.stages + 1, p.resident, p.chunks)
+    assert p.stages == 8 or deeper > 232_448
+    fits = im.i8_smem(p.nq, im.I8_MIN_RESIDENT_STAGES, True, p.chunks)
+    assert p.resident == (fits <= 232_448)
+    if p.resident:
+        assert p.stages >= im.I8_MIN_RESIDENT_STAGES
+
+
+def test_k11_plan_rejects_an_empty_shape():
+    from rag_dpo_tpu_torch.ops.int8_matmul import i8_plan
+
+    for q, d in ((0, 64), (4, 0)):
+        with pytest.raises(ValueError):
+            i8_plan(q, d)

@@ -28,7 +28,12 @@ from rag_dpo_tpu_torch.ops.fusion import rrf_fuse, rrf_fuse_reference
 from rag_dpo_tpu_torch.ops.int8_matmul import int8_block_max
 from rag_dpo_tpu_torch.ops.maxsim import maxsim
 from rag_dpo_tpu_torch.ops.pooled import pooled_group_max
-from rag_dpo_tpu_torch.ops.sparse import ell_scores, ell_scores_reference, ell_topk
+from rag_dpo_tpu_torch.ops.sparse import (
+    ell_order_keys,
+    ell_scores,
+    ell_scores_reference,
+    ell_topk,
+)
 from rag_dpo_tpu_torch.ops.topk import (
     approx_topk,
     blocked_topk,
@@ -182,6 +187,33 @@ def test_streaming_reference_small_k_and_invalid_tail():
     top, ids = streaming_topk_reference(s, 8, block_n=8, seg=4, n_valid=6)
     assert ids[0].tolist()[-2:] == [-1, -1]
     assert top[0, -1] == np.float32(-1e30)
+
+
+@pytest.mark.parametrize("n,block_n,seg", [
+    (3000, 1024, 128),   # the kernel's blocks, three and a partial one
+    (1024, 1024, 128),   # the hermetic replay's one block
+    (130, 1024, 128),    # a partial segment
+    (2000, 256, 32),     # other block and segment widths
+])
+def test_ell_order_keys_follow_the_streaming_order(n, block_n, seg):
+    """The ELL kernel's 64-bit key (`ell_order_keys`, its host mirror):
+    unique in a query, and its descending order is the reference's
+    streaming order on scores with planted ties across blocks, rounds and
+    segments, ±0.0 among them (equal to each other), and rows past N."""
+    rng = np.random.default_rng(n + block_n)
+    s = rng.integers(-3, 4, (4, n)).astype(np.float32) * 0.5
+    zero = s == 0
+    s[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
+    s[1] = 0.0                          # a query of equal scores
+    s[2, ::7] = 1e30                    # huge ties, below them the rest
+    scores = torch.from_numpy(s)
+    key = ell_order_keys(scores, block_n=block_n, seg=seg)
+    assert key.dtype == torch.int64 and key.shape == (4, n)
+    assert all(len(set(row.tolist())) == n for row in key)
+    k = min(n, -(-n // block_n) * block_n)
+    _, want = streaming_topk_reference(scores, k, block_n=block_n, seg=seg)
+    order = torch.argsort(key, dim=1, descending=True)
+    assert torch.equal(order[:, :k].int(), want)
 
 
 def _dense_case(rng, n=600, d=16, q=3):
