@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    widths 8 ... 320 and S of 1, 63, 65 and 513; ELL at the hermetic
    replay's shape too, timed there (one launch) beside an empty kernel's
    launch-to-launch time, the practical floor of a launch;
-   MaxSim at the rerank's full width and the replay's; the fused dense
+   MaxSim at the rerank's full width and the replay's (the wrapper's host
+   time too), at D 16,384 and with masks that are no prefix; the fused dense
    top-k at the serve shape, the replay's and over 1M rows, the pooled int8
    sweep over 1M rows, at batches 1, 64 and 256), the per-segment
    candidates (K5)
@@ -125,8 +126,11 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # product) in tiles of 8 to 64 rows against the twins' single block; one
 # TF32 product would err ~1e-3 (tests/test_torch_flash_bwd_tf32.py)
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# K7: the kernel sums each dot in lane order and the twin in cuBLAS's,
-# both in f32; maxima are exact, so scores agree to f32 rounding
+# K7: the kernel's products keep f32 accuracy on the TF32 tensor cores (the
+# query split in two, f32 rows 3xTF32: ~2^-21 a product) and sum in mma
+# order, the twin in cuBLAS's, both in f32; maxima are exact, so scores
+# agree to f32 rounding; one TF32 product would err about the whole of
+# this tolerance (tests/test_torch_maxsim_tf32.py)
 MAXSIM_TOL = dict(rtol=1e-5, atol=1e-4)
 SERVE_KERNELS = ("flash_fwd", "ell_topk", "fused_topk")
 MAXSIM_KERNELS = ("flash_fwd", "ell_topk", "fused_topk", "maxsim")
@@ -641,45 +645,73 @@ def launch_floor(dev) -> dict:
 def maxsim_bound(qv, q_mask, dv, d_mask) -> dict:
     """2·D flops for every (valid query token, valid doc token) pair: every
     query meets every candidate, so Σ_(q,c) nq_q·nd_c = Σ nq_q · Σ nd_c.
-    Bytes: the valid query and doc rows and both masks read once (masked
-    rows are never read, nor needed), the scores written once."""
+    K7 runs them on the TF32 tensor cores at f32 accuracy: two TF32
+    products a flop for f16 / bf16 rows (the query split in two, the rows
+    exact in TF32), three for f32 rows (3xTF32). Bytes: the valid query and
+    doc rows and both masks read once (masked rows are never read, nor
+    needed), the scores written once."""
+    import torch
+
     d = qv.shape[2]
     nq, nd = float(q_mask.sum()), float(d_mask.sum())
+    products = 3.0 if dv.dtype == torch.float32 else 2.0
+    flops = products * 2.0 * d * nq * nd
     nbytes = (nq * d * qv.element_size() + nd * d * dv.element_size()
               + q_mask.numel() + d_mask.numel()
               + 4 * qv.shape[0] * dv.shape[0])
-    return bound(2.0 * d * nq * nd, nbytes)
+    return {**bound(flops, nbytes, TF32_FLOPS),
+            "bound_terms_ms": {"products": flops / TF32_FLOPS * 1e3,
+                               "bytes": nbytes / HBM_BYTES_PER_S * 1e3}}
 
 
 def check_maxsim(dev, gen, colbert_len: int) -> dict:
+    import ctypes
+
     import torch
 
-    from rag_dpo_tpu_torch.ops.maxsim import maxsim, maxsim_plain
+    from rag_dpo_tpu_torch.evals.turns import host_us
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.ops.maxsim import maxsim, maxsim_plain, maxsim_plan
+
+    lib = _kernels.load("maxsim")
+    lib.maxsim_launches.restype = ctypes.c_int
+    launches = lib.maxsim_launches()  # kernels a call: 1
 
     def unit(x):  # the ColBERT head's vectors are unit length
         return x / x.norm(dim=-1, keepdim=True)
 
-    # (label, Q, LQ, C, LD, D, dv dtype, masked tokens): the rerank of 40
+    # (label, Q, LQ, C, LD, D, dv dtype, masks): the rerank of 40
     # candidates at full width (a question of 32 tokens, all valid, against
     # stored rows valid up to each chunk's length), the hermetic replay's,
     # and edge cases: masked query tokens, a query with none, a candidate
-    # with no valid token, odd sizes, Q > 1, f32 and bf16 rows
-    cases = [("rerank", 1, 32, 40, colbert_len, 1024, torch.float16, False),
-             ("hermetic", 1, 27, 40, 96, 32, torch.float16, False),
-             ("edges", 3, 13, 37, 50, 96, torch.float32, True),
-             ("edges", 2, 40, 41, colbert_len, 1024, torch.bfloat16, True)]
+    # with no valid token, odd sizes, Q > 1, f32 and bf16 rows; D 16,384,
+    # which K7 refused before it streamed D (C-22); valid rows that are no
+    # prefix, none in a candidate's first 64-row blocks
+    cases = [("rerank", 1, 32, 40, colbert_len, 1024, torch.float16,
+              "prefix"),
+             ("hermetic", 1, 27, 40, 96, 32, torch.float16, "prefix"),
+             ("edges", 3, 13, 37, 50, 96, torch.float32, "edges"),
+             ("edges", 2, 40, 41, colbert_len, 1024, torch.bfloat16,
+              "edges"),
+             ("D 16,384", 1, 4, 3, 8, 16_384, torch.float16, "edges"),
+             ("no prefix", 2, 32, 40, colbert_len, 1024, torch.float16,
+              "scattered")]
     out = {}
-    for label, q, lq, c, ld, d, dtype, edges in cases:
+    for label, q, lq, c, ld, d, dtype, masks in cases:
         qv = unit(torch.randn((q, lq, d), generator=gen, device=dev))
         dv = unit(torch.randn((c, ld, d), generator=gen,
                               device=dev)).to(dtype)
         dlen = torch.randint(1, ld + 1, (c, 1), generator=gen, device=dev)
         d_mask = torch.arange(ld, device=dev)[None, :] < dlen
         q_mask = torch.ones((q, lq), dtype=torch.bool, device=dev)
-        if edges:
+        if masks == "scattered":
+            d_mask = torch.rand((c, ld), generator=gen, device=dev) > 0.6
+            d_mask[::3, : ld // 2] = False
+        if masks == "edges":
             q_mask = torch.rand((q, lq), generator=gen, device=dev) > 0.3
             q_mask[:, 0] = True
-            q_mask[-1] = False
+            if q > 1:
+                q_mask[-1] = False
             d_mask[c // 2] = False
         args = (qv, q_mask, dv, d_mask)
         got, ref = maxsim(*args), maxsim_plain(*args)
@@ -698,25 +730,39 @@ def check_maxsim(dev, gen, colbert_len: int) -> dict:
         shape = f"[{q},{lq}]x[{c},{ld}] D={d} {str(dtype)[6:]}"
         log(f"maxsim {shape} ({label}) max_abs_err={err:.3g} "
             f"(of max |score| {float(ref.abs().max()):.3g}); deterministic")
-        if label != "edges":
+        if label in ("rerank", "hermetic"):
             bnd = maxsim_bound(*args)
+            plan = maxsim_plan(dtype, q, lq, c, ld, d)
             timed = {
                 "max_abs_err": err,
-                "ms": cuda_ms(lambda: maxsim(*args)),
+                "ms": cuda_ms(lambda: maxsim(*args), iters=200),
                 "plain_ms": cuda_ms(lambda: maxsim_plain(*args)),
-                # the tile pass and the merge
-                "device_ms": device_ms(lambda: maxsim(*args), launches=2),
+                "device_ms": device_ms(lambda: maxsim(*args),
+                                       launches=launches),
                 "plain_device_ms": device_ms(lambda: maxsim_plain(*args)),
-                **bnd, "shape": shape}
+                # the wrapper's host time a call (calls enqueued back to
+                # back; the card runs each in less)
+                "host_us": host_us(lambda: maxsim(*args)),
+                **bnd, "shape": shape, "launches_a_call": launches,
+                "plan": {"row_tile": plan.row_tile,
+                         "query_tile": plan.query_tile,
+                         "stages": plan.stages, "smem": plan.smem,
+                         "blocks": c * plan.row_tiles}}
             log(f"  kernel_ms={timed['ms']:.4f} plain_ms="
                 f"{timed['plain_ms']:.4f} (device only: kernel "
                 f"{fmt_ms(timed['device_ms'])}, plain "
-                f"{fmt_ms(timed['plain_device_ms'])}); bound "
-                f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']})")
+                f"{fmt_ms(timed['plain_device_ms'])}); wrapper host "
+                f"{timed['host_us']:.1f} us a call; bound "
+                f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}; products "
+                f"{bnd['bound_terms_ms']['products']:.5f}, bytes "
+                f"{bnd['bound_terms_ms']['bytes']:.5f}); plan "
+                f"{timed['plan']}")
             out[label] = timed
+    registers = [f"{kernel}: {report}" for kernel, report in
+                 ptxas_report(_kernels.BUILD_LOGS.get("maxsim", ""))]
     # the unprefixed numbers are the rerank's, where the main path's
     # launches are counted; hermetic_ keys hold the replay's shape
-    return {**out["rerank"], "library_ms": None,
+    return {**out["rerank"], "library_ms": None, "ptxas": registers or None,
             **{f"hermetic_{k}": v for k, v in out["hermetic"].items()}}
 
 
@@ -2498,6 +2544,9 @@ def main() -> int:
         {"name": "maxsim", "route": "cuda",
          "source": "rag_dpo_tpu_torch/csrc/maxsim.cu",
          "replaces": "rag_dpo_tpu/ops/maxsim.py:43",
+         "instructions": "mma.sync m16n8k8 tf32: f32 queries as big + "
+                         "small (f32 rows 3xTF32), f16/bf16 rows exact; "
+                         "one launch",
          "launches": path["maxsim"]["launches"]["maxsim"],
          "hermetic_launches": hermetic["maxsim"]["launches"]["maxsim"],
          **mx},

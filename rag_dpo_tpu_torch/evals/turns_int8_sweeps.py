@@ -28,30 +28,20 @@ import argparse
 import ctypes
 import json
 import pathlib
-import subprocess
 import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))  # run as a script
+from rag_dpo_tpu_torch.evals import turns  # noqa: E402
 
 ROWS, DIM = 1_000_000, 1024
 
 
 def build_parent(kernels, parent: pathlib.Path) -> dict:
-    """The parent's two libraries, built together."""
-    out = kernels.BUILD_DIR / "turns_parent"
-    out.mkdir(parents=True, exist_ok=True)
-    csrc = parent / "rag_dpo_tpu_torch" / "csrc"
-    procs = {name: subprocess.Popen(
-        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
-         str(out / f"lib{name}.so"), str(csrc / f"{name}.cu")],
-        stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-        for name in ("pooled", "int8_block_max")}
-    libs = {}
-    for name, proc in procs.items():
-        text = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n"
-                               f"{text}")
-        libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
+    """The parent's two libraries, built together, with 08858f2's C
+    signatures."""
+    libs = turns.build_parent(kernels, parent, ("pooled", "int8_block_max"),
+                              "turns_parent")
     p, i = ctypes.c_void_p, ctypes.c_int
     libs["pooled"].pooled_max.argtypes = [p, p, p, p, *[i] * 6, p, p, p]
     for fn in ("int8_block_max_bf16", "int8_block_max_i8"):
@@ -66,8 +56,6 @@ def main() -> int:
     args = ap.parse_args()
     import torch
 
-    root = pathlib.Path(__file__).resolve().parents[2]
-    sys.path.insert(0, str(root))
     from rag_dpo_tpu_torch.evals.bench_int8_matmul import library_block_max
     from rag_dpo_tpu_torch.ops import _kernels
     from rag_dpo_tpu_torch.ops.int8_matmul import int8_block_max
@@ -77,33 +65,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("turns_int8_sweeps: no CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(card.strip(), flush=True)
+    card = turns.card()
+    print(card, flush=True)
     parent = build_parent(_kernels, args.parent.resolve())
     _kernels.build_all()
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
 
-    def ms(fn, iters=20):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def turns(old, new):
-        t = [ms(old), ms(new), ms(new), ms(old)]
-        return {"parent_ms": [t[0], t[3]], "new_ms": [t[1], t[2]]}
-
-    result = {"card": card.strip()}
+    result = {"card": card}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = torch.randn((ROWS, DIM), generator=gen, device=dev)
@@ -132,7 +101,7 @@ def main() -> int:
         old()
         v, i = new()
         torch.cuda.synchronize()
-        r = turns(old, new)
+        r = turns.turns(old, new, device=False)
         r["values_differ"] = int((v != out_v).sum())
         r["ids_differ"] = int((i != out_i).sum())
         result[f"k6_q{nq}"] = r
@@ -165,12 +134,14 @@ def main() -> int:
 
             old()
             same = bool(torch.equal(new(), strip))
-            r = turns(old, new) if nq == 64 else {"new_ms": [ms(new)]}
+            r = (turns.turns(old, new, device=False) if nq == 64
+                 else {"new_ms": [turns.event_ms(new)]})
             r["same_strip"] = same
             result[f"{name}_q{nq}"] = r
             print(f"{name} Q {nq}: " + ", ".join(
                 f"{k} {v}" for k, v in r.items()), flush=True)
-        lib = ms(lambda q8=q8: library_block_max(q8, e8, 2048))
+        lib = turns.event_ms(
+            lambda q8=q8: library_block_max(q8, e8, 2048))
         result[f"library_q{nq}"] = lib
         print(f"library strip Q {nq}: {lib:.4f} ms", flush=True)
     print(json.dumps(result))

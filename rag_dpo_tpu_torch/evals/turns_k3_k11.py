@@ -33,29 +33,20 @@ import argparse
 import ctypes
 import json
 import pathlib
-import subprocess
 import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))  # run as a script
+from rag_dpo_tpu_torch.evals import turns  # noqa: E402
 
 ROWS, DIM, BLOCK = 1_000_000, 1024, 2048
 
 
 def build_parent(kernels, parent: pathlib.Path) -> dict:
-    """The parent's two libraries, built together."""
-    out = kernels.BUILD_DIR / "turns_k3_k11"
-    out.mkdir(parents=True, exist_ok=True)
-    csrc = parent / "rag_dpo_tpu_torch" / "csrc"
-    procs = {name: subprocess.Popen(
-        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
-         str(out / f"lib{name}.so"), str(csrc / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name in ("ell_topk", "int8_block_max")}
-    libs = {}
-    for name, proc in procs.items():
-        text = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n"
-                               f"{text}")
-        libs[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
+    """The parent's two libraries, built together, with c9cb2fc's C
+    signatures."""
+    libs = turns.build_parent(kernels, parent, ("ell_topk", "int8_block_max"),
+                              "turns_k3_k11")
     p, i = ctypes.c_void_p, ctypes.c_int
     libs["ell_topk"].ell_topk.argtypes = [p, p, p, p, *[i] * 5, p, p, p, p, p]
     libs["int8_block_max"].int8_block_max_i8.argtypes = [p, p, *[i] * 4, p,
@@ -91,11 +82,7 @@ def main() -> int:
                     help="root of the parent checkout")
     args = ap.parse_args()
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    root = pathlib.Path(__file__).resolve().parents[2]
-    sys.path.insert(0, str(root))
     from rag_dpo_tpu_torch.evals.bench_int8_matmul import library_block_max
     from rag_dpo_tpu_torch.ops import _kernels
     from rag_dpo_tpu_torch.ops.int8_matmul import int8_block_max
@@ -104,46 +91,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("turns_k3_k11: no CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(card.strip(), flush=True)
+    card = turns.card()
+    print(card, flush=True)
     parent = build_parent(_kernels, args.parent.resolve())
     _kernels.build_all()
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
 
-    def ms(fn, iters):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def device_ms(fn, iters=20):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / iters / 1e3
-
-    def turns(old, new, iters):
-        t = [ms(old, iters), ms(new, iters), ms(new, iters), ms(old, iters)]
-        return {"parent_ms": [t[0], t[3]], "new_ms": [t[1], t[2]],
-                "parent_device_ms": device_ms(old),
-                "new_device_ms": device_ms(new)}
-
-    result = {"card": card.strip()}
+    result = {"card": card}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     for label, shape in (("serve", (17_408, 16_919, 32, 4_000, 4, 32, 20)),
@@ -173,7 +128,7 @@ def main() -> int:
 
         (ps, pi), (ns, ni) = old(), new()
         torch.cuda.synchronize()
-        r = turns(old, new, 200)
+        r = turns.turns(old, new, 200)
         r["same_ids_and_scores"] = bool(torch.equal(pi, ni)
                                         and torch.equal(ps, ns))
         result[f"k3_{label}"] = r
@@ -202,10 +157,10 @@ def main() -> int:
             return int8_block_max(q8, e8, block=BLOCK, upcast="int8")
 
         same = bool(torch.equal(old(), new()))
-        r = turns(old, new, 20)
+        r = turns.turns(old, new, 20)
         r["same_strip"] = same
-        r["library_ms"] = ms(lambda q8=q8: library_block_max(q8, e8, BLOCK),
-                             20)
+        r["library_ms"] = turns.event_ms(
+            lambda q8=q8: library_block_max(q8, e8, BLOCK))
         result[f"k11_q{nq}"] = r
         print(f"K11 Q {nq}: " + ", ".join(f"{key} {val}"
                                           for key, val in r.items()),

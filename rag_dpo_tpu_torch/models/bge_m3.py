@@ -19,6 +19,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from ..ops import default_device
 from .convert import load_flax_params
 from .encoder import EncoderConfig, TransformerEncoder, init_random_
 
@@ -82,10 +83,12 @@ class BgeM3Model(nn.Module):
 
 
 def build_bge_m3(config: BgeM3Config, params=None, rng_seed: int = 0,
-                 device="cpu") -> BgeM3Model:
-    """A `BgeM3Model` on `device`: the given Flax tree (numpy leaves, e.g.
-    `load_params_npz`), else seeded random weights made on the device."""
-    device = torch.device(device)
+                 device=None) -> BgeM3Model:
+    """A `BgeM3Model` on `device` (the card unless given; without a card
+    `device="cpu"` must be asked for): the given Flax tree (numpy leaves,
+    e.g. `load_params_npz`), else seeded random weights made on the
+    device."""
+    device = default_device(device)
     if params is not None:
         return load_flax_params(BgeM3Model(config), params).to(device)
     with device:  # no host-side init pass

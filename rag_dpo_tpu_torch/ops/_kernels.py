@@ -64,8 +64,9 @@ SIGNATURES = {
     # dtype, q, k, v, dout, lengths, lse, dd, dk, dv, B, H, S, Dh, scale,
     # stream
     "flash_bwd_dkv": [_I, *[_P] * 9, _I, _I, _I, _I, _F, _P],
-    # dtype, qv, q_mask, dv, d_mask, Q, LQ, C, LD, D, partial, out, stream
-    "maxsim": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # dtype, qv, q_mask, dv, d_mask, Q, LQ, C, LD, D, row_tile, query_tile,
+    # stages, slots, tickets, out, stream
+    "maxsim": [_I, _P, _P, _P, _P, *[_I] * 8, _P, _P, _P, _P],
     # dtype, q, e, penalty, P, Q, N, D, k, rows_per_block, tile_q, stages,
     # lists_in_smem, merge_in_smem, cand_s, cand_i, out_s, out_i, stream
     "fused_topk": [_I, _P, _P, _P, *[_I] * 10, _P, _P, _P, _P, _P],

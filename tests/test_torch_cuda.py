@@ -373,13 +373,20 @@ def _maxsim_case(gen, dev, q, lq, c, ld, d, dtype):
     q_mask[:, 0] = True
     d_mask[:, 0] = True
     d_mask[c // 2] = False            # a candidate with no valid token
+    if c > 2:
+        # valid rows that are no prefix, none in the first 64-row tiles
+        d_mask[-1] = torch.arange(ld, device=dev) % 3 == ld % 3
+        d_mask[-1, : ld * 3 // 4] = False
+        d_mask[-1, -1] = True
     if q > 1:
         q_mask[-1] = False            # a query with no valid token
     return qv, q_mask, dv, d_mask
 
 
-# K7: the kernel sums each dot in lane order and the twin in cuBLAS's, both
-# in f32; maxima are exact, so the scores agree to f32 rounding.
+# K7: the kernel's products run on the tensor cores at f32 accuracy (the
+# query split into two TF32 parts, f32 rows into three: 3xTF32, ~2^-21 a
+# product) and sum in mma order, the twin in cuBLAS's, both in f32; maxima
+# are exact, so the scores agree to f32 rounding.
 MAXSIM_TOL = dict(rtol=1e-5, atol=1e-4)
 
 
@@ -393,6 +400,14 @@ MAXSIM_TOL = dict(rtol=1e-5, atol=1e-4)
     (2, 1, 1, 1, 8, torch.float32),
     (1, 300, 5, 600, 1024, torch.float16),   # more tokens than threads
     (1, 20, 7, 40, 2048, torch.float16),     # over 48 KB of shared memory
+    (1, 32, 40, 256, 1024, torch.float16),   # the stored rows' full length
+    (1, 4, 3, 8, 16_384, torch.float16),     # C-22: D past the old staging
+    (1, 4, 3, 8, 16_384, torch.float32),
+    (2, 9, 11, 70, 100, torch.float16),      # D % 8: rows not 16-byte
+    (2, 9, 11, 70, 100, torch.bfloat16),     # aligned, loaded by element
+    (1, 7, 5, 33, 99, torch.float32),        # D % 4: the query too
+    (1, 129, 6, 90, 256, torch.float32),     # LQ past four query tiles
+    (5, 16, 12, 80, 128, torch.bfloat16),    # Q 5
 ])
 def test_maxsim_kernel_matches_plain(dev, q, lq, c, ld, d, dtype):
     gen = torch.Generator(device=dev)
@@ -429,14 +444,38 @@ def test_maxsim_kernel_rejects_what_it_does_not_take(dev):
                 (qv.cpu(), qm.cpu(), dv, dm)):      # devices differ
         with pytest.raises(ValueError):
             maxsim(*bad)
-    # a query tile of D = 16,384 f32 needs 512 KB of shared memory: the C
-    # entry's error, after which the card still runs
-    wide = torch.zeros((1, 4, 16_384), device=dev)
-    with pytest.raises(RuntimeError, match="maxsim launch failed"):
-        maxsim(wide, qm, torch.zeros((3, 8, 16_384), dtype=torch.float16,
-                                     device=dev), dm)
+    # D = 16,384, past what a block's shared memory holds whole (C-22)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    wide = (torch.randn((1, 4, 16_384), generator=gen, device=dev), qm,
+            torch.randn((3, 8, 16_384), generator=gen,
+                        device=dev).half(), dm)
+    torch.testing.assert_close(maxsim(*wide), maxsim_plain(*wide),
+                               **MAXSIM_TOL)
     assert torch.equal(maxsim(qv, qm, dv, dm), torch.zeros((1, 3),
                                                            device=dev))
+
+
+def test_maxsim_plan_matches_the_kernels_shared_memory(dev):
+    """ops/maxsim.py plans K7 on the CPU; the library computes the shared
+    bytes again from the same plan (`maxsim_smem`) and counts one launch a
+    call (`maxsim_launches`)."""
+    import ctypes
+
+    from rag_dpo_tpu_torch.ops.maxsim import _DV_DTYPES, maxsim_plan
+
+    lib = _kernels.load("maxsim")
+    lib.maxsim_smem.restype = ctypes.c_int
+    lib.maxsim_smem.argtypes = [ctypes.c_int] * 2
+    lib.maxsim_launches.restype = ctypes.c_int
+    assert lib.maxsim_launches() == 1
+    for dtype, code in _DV_DTYPES.items():
+        for q, lq, c, ld, d in ((1, 32, 40, 256, 1024), (1, 27, 40, 96, 32),
+                                (1, 4, 3, 8, 16_384), (5, 300, 7, 1, 8),
+                                (2, 1, 1, 1, 1)):
+            p = maxsim_plan(dtype, q, lq, c, ld, d)
+            assert lib.maxsim_smem(code, p.stages) == p.smem, (dtype, q, d)
+            assert p.smem <= 232_448
 
 
 def test_maxsim_rerank_on_the_card_matches_the_cpu(dev):

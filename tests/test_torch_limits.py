@@ -115,6 +115,50 @@ def test_candidates_plan_admits_every_seg(q, seg, block_n, dtype):
         assert plan["scratch"] == q * n_segs * pieces
 
 
+# (Q, LQ, C, LD, D) that K7 refused before it streamed D and walked the
+# query tokens inside a block (C-22), beside the rerank's and the replay's
+MAXSIM_SHAPES = [(1, 32, 40, 256, 1024), (1, 27, 40, 96, 32),
+                 (1, 4, 3, 8, 16_384), (2, 9, 11, 70, 100),
+                 (1, 129, 6, 90, 256), (65_536, 2, 3, 5, 8),
+                 (1, 524_281, 1, 1, 16), (1, 1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("q,lq,c,ld,d", MAXSIM_SHAPES)
+def test_maxsim_plan_takes_every_shape(q, lq, c, ld, d, dtype):
+    """K7's plan fits a block's shared memory at any D (a ring of 2 to 6
+    slices of 128 bytes of a doc row and the query tile's same columns),
+    covers every doc row with 64-row blocks and every query token with
+    32-token tiles walked inside a block: no grid dimension holds Q or LQ,
+    and nothing holds all of D."""
+    from rag_dpo_tpu_torch.ops.maxsim import maxsim_plan
+
+    plan = maxsim_plan(dtype, q, lq, c, ld, d)
+    itemsize = torch.finfo(dtype).bits // 8
+    assert plan.slice * itemsize == 128
+    assert 2 <= plan.stages <= 6
+    assert plan.stages <= max(2, plan.query_tiles * -(-d // plan.slice))
+    # a stage: TMA boxes of 64 doc rows and 32 query rows of 4·slice bytes,
+    # after 1,024 bytes that align them
+    assert plan.smem == 1024 + plan.stages * (64 * 128 + 32 * plan.slice * 4)
+    # two blocks fit an SM's 228 KB with their static shared memory
+    assert plan.smem <= 100_000 < SMEM_MAX
+    assert plan.row_tiles * plan.row_tile >= ld > (plan.row_tiles - 1) * 64
+    assert plan.query_tiles * plan.query_tile >= q * lq
+    assert c * plan.row_tiles <= 2**31 - 1
+
+
+def test_maxsim_plan_refuses_only_what_no_card_takes():
+    from rag_dpo_tpu_torch.ops.maxsim import maxsim_plan
+
+    for bad in ((torch.float32, 0, 4, 3, 8, 32),    # an empty axis
+                (torch.float64, 1, 4, 3, 8, 32),    # rows the kernel lacks
+                (torch.float16, 1, 1, 2**31 - 1, 65, 8)):  # 2³² blocks
+        with pytest.raises(ValueError):
+            maxsim_plan(*bad)
+
+
 def test_large_k_lists_leave_shared_memory_only_at_the_smallest_tile():
     """The bf16 query tile halves while its lists fit no longer; only at
     8 queries do they go to the candidate scratch."""

@@ -147,3 +147,21 @@ def test_random_init_is_seeded_and_unit_norm():
     np.testing.assert_array_equal(a, b)
     assert not np.allclose(a, c)
     np.testing.assert_allclose(np.linalg.norm(a, axis=1), 1.0, rtol=1e-5)
+
+
+def test_build_bge_m3_runs_on_the_card_unless_asked_for_the_cpu(
+        monkeypatch):
+    """`build_bge_m3` resolves `device=None` as every entry point of the
+    port does: the card, and without one the error `default_device`
+    raises; the CPU only where the caller asks for it."""
+    from rag_dpo_tpu_torch.models.bge_m3 import build_bge_m3
+    from rag_dpo_tpu_torch.ops import default_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as want:
+        default_device(None)
+    with pytest.raises(RuntimeError) as got:
+        build_bge_m3(BgeM3Config.tiny())
+    assert str(got.value) == str(want.value)
+    model = build_bge_m3(BgeM3Config.tiny(), rng_seed=3, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
