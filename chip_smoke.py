@@ -74,6 +74,24 @@ Phases, in order; any failure exits non-zero before the result lines:
    and no plain twin may run on the card; the flash forward and SDPA are
    then timed at the attention shapes these queries called most (the
    query encode at batch 1, the cross-encoder's batch);
+6b. serve, agent — the shipped default config (`load_config()` with only
+   `llm.base_url` set: `llm.mode="local"`, the agent on) through
+   `build_stack`, with the serve phase's loaded index and full-width
+   encoders injected, against a loopback Ollama-protocol endpoint in this
+   process that answers as the fake LLM (`evals/fake_ollama.py`):
+   `stack.active()` must be the agent graph, which answers the 8 questions
+   after 1 warm-up (p50, max, one question's node trace); K1, K3 and K4
+   must launch and no plain twin may run;
+6c. serve, concurrent — `DeviceIndex.warm((1, 64, 256))`, timed; then 16
+   threads each ask the 8 questions through the default config's agent,
+   with batching off, then with `embedding.query_batch` and
+   `retrieval.rerank_batch` at 64 (queries/s, p50, max, the batchers'
+   stats): every coalesced query vector must lie within 1e-5 of its
+   direct one, query encodes must coalesce (mean batch > 1), every
+   question's fused ids must equal the run without batching, no batch may
+   fail (an error in a batcher's thread reaches its callers and fails the
+   phase), no rerank may fall back, K1, K3 and K4 must launch and no twin
+   may run;
 7. serve, MaxSim — `create_pipeline(use_maxsim=True)` over the same loaded
    index answers 8 questions, reranking 40 candidates to 10 by MaxSim over
    the stored ColBERT rows; K7 must launch and no twin may run;
@@ -93,7 +111,8 @@ The second-to-last line is a JSON object with each kernel's launches in
 the phase of the main path that runs it (serve for the ELL kernel, MaxSim
 serve for K7, train for the flash kernels, scale for K4, and for K5, K6,
 K10 and K11 their own paths: no store path calls them, as in the JAX
-package), its max abs error against the twin, its times, its bound
+package; K1, K3 and K4 also with the agent's and the concurrent phase's
+counts), its max abs error against the twin, its times, its bound
 and the library call's time; the last line is `{"ok": true, "device":
 {...}}`. There is no CPU path.
 """
@@ -150,6 +169,10 @@ CAND_RECIPE, CAND_K = {"block_n": 2048, "seg": 128}, 40
 # and ids but where two rows (K6: the two best of a group) lie within 1e-5
 # of each other
 NEAR_TIE = 1e-5
+# phase 6c: the concurrent serve's threads, the batchers' max_batch, and
+# how far a coalesced query vector may lie from its direct one (the
+# coalesced GEMMs have other shapes; tests/test_torch_serving.py)
+CONCURRENT_THREADS, CONCURRENT_BATCH, COALESCED_TOL = 16, 64, 1e-5
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_PAIRS, TRAIN_SEQ, TIMED_STEPS = 16, 192, 8
 # H100 SXM data sheet, at 700 W: f32 FLOP/s outside the tensor cores, the
@@ -2065,8 +2088,11 @@ def run_path(seed: int, dev, dataset, chunks, colbert_len: int) -> dict:
         log(f"serve: {N_QUESTIONS} queries after 1 warm-up: p50 "
             f"{np.median(times) * 1e3:.1f} ms, max {max(times) * 1e3:.1f} "
             f"ms; launches {launches}, plain twins on the card {plain}")
+        agent = serve_agent(stack, questions, dev)
+        concurrent = serve_concurrent(stack, questions, dev)
         maxsim = serve_maxsim(stack, questions, colbert_len)
     return {"launches": launches, "plain_on_cuda": plain,
+            "agent": agent, "concurrent": concurrent,
             "flash_shapes": shapes,
             "ingest_chunks_per_s": N_CHUNKS / ingest_s,
             "colbert_store_gb": store_gb, "ingest_host_peak_gb": rss_gb,
@@ -2117,6 +2143,277 @@ def timed_queries(pipeline, questions) -> list[float]:
         check(resp.sources, f"no sources for {question!r}")
         check(resp.answer.strip(), f"empty answer for {question!r}")
     return times
+
+
+def default_config_stack(stack, dev, env: dict, embedder=None,
+                         reranker=None):
+    """`build_stack` of the shipped default config, with only
+    `llm.base_url` (and `env`'s other knobs) set: the LLM from its factory
+    (mode "local", the HTTP provider), both orchestrators, the batchers.
+    The serve phase's loaded index and full-width encoders are injected:
+    the default config names no checkpoint, and its cross-encoder would be
+    the tiny one."""
+    from rag_dpo_tpu_torch.bootstrap import build_stack
+    from rag_dpo_tpu_torch.utils.config import load_config
+
+    config = load_config(env=env)
+    check(config.llm.mode == "local" and config.agent.enable,
+          f"the default config is mode {config.llm.mode!r}, agent "
+          f"{config.agent.enable}")
+    return build_stack(config, stack.paths, index=stack.index,
+                       embedder=embedder or stack.embedder,
+                       reranker=reranker or stack.pipeline.reranker,
+                       device=dev)
+
+
+def record_llm_errors(llm) -> list:
+    """Wraps the provider's generate and chat on the instance; the list
+    fills with the in-band error of every call that failed (the query
+    expander and the intent classifier would degrade quietly)."""
+    errors = []
+    for name in ("generate", "chat"):
+        call = getattr(llm, name)
+
+        def recording(*a, _call=call, **kw):
+            resp = _call(*a, **kw)
+            if resp.error:
+                errors.append(resp.error)
+            return resp
+
+        setattr(llm, name, recording)
+    return errors
+
+
+def reranks_scored(calls) -> bool:
+    """Every recorded rerank output carries its scores: the cross-encoder's
+    fallback to the incoming order (on any error) would hide a fault."""
+    return bool(calls) and all(c.rerank_score is not None
+                               for out in calls for c in out)
+
+
+def serve_agent(stack, questions, dev) -> dict:
+    """Phase 6b: the default config's stack (`llm.mode="local"` against a
+    loopback Ollama-protocol endpoint answering as the fake LLM, the agent
+    on) answers the questions through `stack.active()`, the agent graph."""
+    import numpy as np
+
+    from rag_dpo_tpu_torch.agent import RAGAgentPipeline
+    from rag_dpo_tpu_torch.evals.fake_ollama import FakeOllama
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.providers import HTTPLLMProvider
+
+    reranker = stack.pipeline.reranker
+    n_calls = len(reranker.calls)
+    with FakeOllama() as ollama:
+        agent_stack = default_config_stack(
+            stack, dev, {"RAGDPO_LLM_BASE_URL": ollama.url})
+        agent = agent_stack.active()
+        llm_errors = record_llm_errors(agent_stack.llm)
+        check(isinstance(agent, RAGAgentPipeline)
+              and isinstance(agent_stack.llm, HTTPLLMProvider)
+              and agent.graph.c.reranker is reranker,
+              f"the default config's active() is {type(agent).__name__} "
+              f"over {type(agent_stack.llm).__name__}")
+        _kernels.reset_counts()
+        times = timed_queries(agent, questions)
+        launches = {n: _kernels.LAUNCHES[n] for n in SERVE_KERNELS}
+        plain = dict(_kernels.PLAIN_ON_CUDA)
+        trace = agent.query(questions[1]).extras["node_trace"]
+        p50 = float(np.median(times))
+        busy, _ = profile_once(lambda: agent.query(questions[1]),
+                               "one agent query", p50)
+        llm_requests = sum(path.startswith("/api/")
+                           for path in ollama.paths)
+    check(reranks_scored(reranker.calls[n_calls:]),
+          "an agent rerank fell back to the incoming order")
+    check(llm_requests > 0, "the agent's LLM calls did not go over HTTP")
+    check(not llm_errors, f"LLM calls failed: {llm_errors[:3]}")
+    log(f"serve, agent (default config): {N_QUESTIONS} queries after 1 "
+        f"warm-up: p50 {p50 * 1e3:.1f} ms, max {max(times) * 1e3:.1f} ms; "
+        f"{llm_requests} LLM requests over HTTP in all; node trace "
+        f"{trace}; launches {launches}, plain twins on the card {plain}")
+    return {"launches": launches, "plain_on_cuda": plain,
+            "query_p50_ms": p50 * 1e3, "query_max_ms": max(times) * 1e3,
+            "query_device_busy_share": busy, "node_trace": trace}
+
+
+def concurrent_queries(agent, questions) -> tuple:
+    """CONCURRENT_THREADS threads, released together, each asking every
+    question once (thread i starting at question i); returns (seconds of
+    each query, wall seconds). An exception in any thread fails the phase
+    with that exception."""
+    import threading
+
+    import torch
+
+    gate = threading.Barrier(CONCURRENT_THREADS + 1)
+    times, errors = [], []
+
+    def ask(i):
+        gate.wait()
+        try:
+            for j in range(len(questions)):
+                question = questions[(i + j) % len(questions)]
+                t0 = time.perf_counter()
+                resp = agent.query(question)
+                times.append(time.perf_counter() - t0)
+                if resp.error or not resp.sources or not resp.answer.strip():
+                    raise RuntimeError(f"{question!r}: error {resp.error}, "
+                                       f"{len(resp.sources)} sources")
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=ask, args=(i,))
+               for i in range(CONCURRENT_THREADS)]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return times, wall
+
+
+def serve_concurrent(stack, questions, dev) -> dict:
+    """Phase 6c: `DeviceIndex.warm`, then CONCURRENT_THREADS threads ask
+    the questions through the default config's agent, with batching off,
+    then with `embedding.query_batch` and `retrieval.rerank_batch` at
+    CONCURRENT_BATCH. Each coalesced query vector must equal its direct
+    one within COALESCED_TOL and each question's fused ids those of the
+    run with batching off; a batcher error or fallback fails the phase."""
+    import numpy as np
+    import torch
+
+    from rag_dpo_tpu_torch.evals.fake_ollama import FakeOllama
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.providers import Embedder
+    from rag_dpo_tpu_torch.retrieval.reranker import CrossEncoderReranker
+    from rag_dpo_tpu_torch.serving import batcher_stats
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stack.index.warm(SCALE_BATCHES)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    log(f"serve, concurrent: DeviceIndex.warm{SCALE_BATCHES} "
+        f"{warm_s:.2f} s")
+    # the batched run's own embedder and cross-encoder over the same
+    # weights: batching, once on, stays on, and phase 7 reuses the others
+    base = stack.pipeline.reranker
+    embedder = Embedder(stack.embedder.config, device=dev)
+    embedder.model = stack.embedder.model
+    reranker = CrossEncoderReranker(config=base.config,
+                                    model_config=base.model_config,
+                                    device=dev)
+    reranker.model = base.model
+    out = {}
+    with FakeOllama() as ollama:
+        env = {"RAGDPO_LLM_BASE_URL": ollama.url}
+        batched = {**env,
+                   "RAGDPO_EMBEDDING_QUERY_BATCH": str(CONCURRENT_BATCH),
+                   "RAGDPO_RETRIEVAL_RERANK_BATCH": str(CONCURRENT_BATCH)}
+        # build_stack enables pair batching only on the reranker it builds
+        # (as the JAX bootstrap does), so the injected one is enabled here
+        reranker.enable_pair_batching(max_batch=CONCURRENT_BATCH)
+        for label, stack_env, emb, rr in (
+                ("off", env, None, None),
+                ("on", batched, embedder, reranker)):
+            run_stack = default_config_stack(stack, dev, stack_env,
+                                             embedder=emb, reranker=rr)
+            agent = run_stack.active()
+            llm_errors = record_llm_errors(run_stack.llm)
+            check((run_stack.embedder._query_batcher is not None)
+                  == (label == "on")
+                  and (agent.graph.c.reranker._pair_batcher is not None)
+                  == (label == "on"),
+                  f"batching {label}: the batchers are not as configured")
+            fused, vectors, reranked = [], [], []
+            retriever, scorer = agent.components.retriever, \
+                agent.graph.c.reranker
+            candidates, rerank, encode = (retriever.retrieve_candidates,
+                                          scorer.rerank,
+                                          run_stack.embedder.embed_queries)
+
+            def recording_candidates(question, *a, **kw):
+                got = candidates(question, *a, **kw)
+                fused.append((question, [c.row for c in got]))
+                return got
+
+            def recording_rerank(*a, **kw):
+                got = rerank(*a, **kw)
+                reranked.append(got)
+                return got
+
+            def recording_encode(texts):
+                got = encode(texts)
+                vectors.append((list(texts), got))
+                return got
+
+            retriever.retrieve_candidates = recording_candidates
+            scorer.rerank = recording_rerank
+            run_stack.embedder.embed_queries = recording_encode
+            agent.query(questions[0])   # the warm-up, as in 6b
+            del fused[:], vectors[:], reranked[:]
+            _kernels.reset_counts()
+            times, wall = concurrent_queries(agent, questions[1:])
+            launches = {n: _kernels.LAUNCHES[n] for n in SERVE_KERNELS}
+            plain = dict(_kernels.PLAIN_ON_CUDA)
+            del retriever.retrieve_candidates, scorer.rerank
+            del run_stack.embedder.embed_queries
+            check(reranks_scored(reranked),
+                  f"batching {label}: a rerank fell back")
+            check(not llm_errors,
+                  f"batching {label}: LLM calls failed: {llm_errors[:3]}")
+            n = len(times)
+            run = {"queries": n, "queries_per_s": n / wall,
+                   "p50_ms": float(np.median(times)) * 1e3,
+                   "max_ms": max(times) * 1e3, "launches": launches,
+                   "plain_on_cuda": plain}
+            if label == "on":
+                # each coalesced vector against the direct path's
+                err = max(float(np.abs(got - stack.embedder.embed_queries(
+                    texts)).max()) for texts, got in vectors)
+                run["max_abs_vector_err"] = err
+                run["query_batcher"] = batcher_stats(embedder._query_batcher)
+                run["pair_batcher"] = batcher_stats(reranker._pair_batcher)
+                check(err <= COALESCED_TOL,
+                      f"a coalesced query vector is {err:.3g} from its "
+                      f"direct one")
+                check(run["query_batcher"]["mean_batch"] > 1
+                      and run["query_batcher"]["n_device_calls"]
+                      < run["query_batcher"]["n_requests"],
+                      f"query encodes did not coalesce: "
+                      f"{run['query_batcher']}")
+                check(run["query_batcher"]["n_fallbacks"] == 0
+                      and run["pair_batcher"]["n_fallbacks"] == 0,
+                      "a coalesced batch failed and was rerun per caller")
+            by_question = {}
+            for question, rows in fused:
+                by_question.setdefault(question, []).append(rows)
+            run["fused"] = by_question
+            out[label] = run
+            log(f"serve, concurrent, batching {label}: {n} queries from "
+                f"{CONCURRENT_THREADS} threads in {wall:.2f} s = "
+                f"{n / wall:.2f} queries/s, p50 {run['p50_ms']:.1f} ms, max "
+                f"{run['max_ms']:.1f} ms; launches {launches}, plain twins "
+                f"{plain}"
+                + (f"; query batcher {run['query_batcher']}, pair batcher "
+                   f"{run['pair_batcher']}, max |coalesced - direct| "
+                   f"{run['max_abs_vector_err']:.3g}" if label == "on"
+                   else ""))
+        embedder._query_batcher.close()
+        reranker._pair_batcher.close()
+    off, on = out["off"].pop("fused"), out["on"].pop("fused")
+    check(set(off) == set(questions[1:]) and set(on) == set(off),
+          "the runs did not retrieve for every question")
+    differ = sorted(q for q in off
+                    if any(rows != off[q][0] for rows in off[q] + on[q]))
+    check(not differ, f"fused ids differ between the runs for {differ}")
+    return {"warm_s": warm_s, **out}
 
 
 def serve_maxsim(stack, questions, colbert_len: int) -> dict:
@@ -2496,6 +2793,16 @@ def main() -> int:
     for name in SERVE_KERNELS:
         check(path["launches"][name] > 0, f"{name} never launched")
         check(path["plain_on_cuda"][name] == 0, f"{name} ran plain")
+    for phase, launched in (
+            ("agent", path["agent"]),
+            ("concurrent, batching off", path["concurrent"]["off"]),
+            ("concurrent, batching on", path["concurrent"]["on"])):
+        for name in SERVE_KERNELS:
+            check(launched["launches"][name] > 0,
+                  f"{name} never launched in the {phase} serve phase")
+        check(not any(launched["plain_on_cuda"].values()),
+              f"a twin ran in the {phase} serve phase: "
+              f"{launched['plain_on_cuda']}")
     for name in MAXSIM_KERNELS:
         check(path["maxsim"]["launches"][name] > 0,
               f"{name} never launched in the MaxSim serve phase")
@@ -2513,6 +2820,14 @@ def main() -> int:
         check(train["launches"][name] > 0, f"{name} never launched")
         check(train["plain_on_cuda"][name] == 0, f"{name} ran plain")
 
+    # the agent's and the concurrent phase's launches of the serve kernels
+    serve_phase_launches = {
+        name: {"agent_launches": path["agent"]["launches"][name],
+               "concurrent_launches": path["concurrent"]["off"]["launches"][
+                   name],
+               "concurrent_batched_launches":
+                   path["concurrent"]["on"]["launches"][name]}
+        for name in SERVE_KERNELS}
     bwd_src = "rag_dpo_tpu_torch/csrc/flash_bwd.cu"
     bwd_mma = ("mma.sync m16n8k8 tf32 (f32: 3xTF32) + m16n8k16 bf16 (bf16 "
                "inputs; P and dS as hi + lo)")
@@ -2524,12 +2839,14 @@ def main() -> int:
                          "bf16 (bf16 inputs)",
          "launches": train["launches"]["flash_fwd"],
          "serve_launches": path["launches"]["flash_fwd"],
+         **serve_phase_launches["flash_fwd"],
          **flash},
         {"name": "ell_topk", "route": "cuda",
          "source": "rag_dpo_tpu_torch/csrc/ell_topk.cu",
          "replaces": "rag_dpo_tpu/ops/sparse.py:71",
          "launches": path["launches"]["ell_topk"],
          "hermetic_launches": hermetic["maxsim"]["launches"]["ell_topk"],
+         **serve_phase_launches["ell_topk"],
          **ell},
         {"name": "flash_bwd_dq", "route": "cuda", "source": bwd_src,
          "replaces": "rag_dpo_tpu/ops/flash_attention_bwd.py:81",
@@ -2558,6 +2875,7 @@ def main() -> int:
          "maxsim_serve_launches":
              path["maxsim"]["launches"]["fused_topk"],
          "hermetic_launches": hermetic["none"]["launches"]["fused_topk"],
+         **serve_phase_launches["fused_topk"],
          **k4},
         {"name": "pooled_max", "route": "cuda",
          "source": "rag_dpo_tpu_torch/csrc/pooled.cu",
@@ -2598,6 +2916,13 @@ def main() -> int:
                         path["query_device_busy_share"],
                     **{f"maxsim_{k}": v for k, v in maxsim.items()
                        if k.startswith("query_")},
+                    **{f"agent_{k}": v for k, v in path["agent"].items()
+                       if k.startswith("query_")},
+                    "concurrent_warm_s": path["concurrent"]["warm_s"],
+                    **{f"concurrent_{label}_{k}": v
+                       for label in ("off", "on")
+                       for k, v in path["concurrent"][label].items()
+                       if k not in ("launches", "plain_on_cuda")},
                     **{f"scale_{k}": v for k, v in scale.items()
                        if k not in ("launches", "plain_on_cuda")},
                     "former_limit_cases": limits["cases"],

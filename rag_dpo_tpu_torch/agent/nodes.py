@@ -1,0 +1,505 @@
+"""Agent graph nodes (role parity: src/rag/agent/nodes.py, 1257 LoC).
+
+Each node is a function (components, state) → state, closure-injected with
+the shared pipeline components exactly as the reference's NodeComponents
+pattern (:40-66) — nodes "reuse the existing pipeline components without
+duplicating logic" (nodes.py:6-9). Node inventory and behaviors:
+
+  rewrite            multi-turn anaphora resolution via LLM (:96-175)
+  classify           intent classification (:182-199)
+  refusal            DETERMINISTIC canned answers, zero LLM (:204-289)
+  enrich             regex article/deadline detection + confusion-guard
+                     negative-topic injection, no LLM (:717-884)
+  decompose          composite questions → ≤3 subs → ONE global retrieval
+                     + ONE structured multi-section generation (:895-1112)
+  retrieve           hybrid retrieve + rerank, honors targeted re-query
+                     (:292-365)
+  generate           context build + tool-result injection + LLM (:368-481)
+  expert_refinement  optional structural polish w/ safety rejections
+                     (:491-608)
+  validate           graduated grounding validation (:611-681)
+  check_completeness LLM coverage check (:1151-1201)
+  respond            finalize timings (:684-704)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+import threading
+import time
+from typing import Any
+
+from ..rag.context import ContextBuilder, fix_markdown_formatting
+from ..rag.generator import Generator
+from ..rag.intent import IntentClassifier
+from ..rag.pipeline import build_enterprise_where_filter, \
+    rebuild_documents_from_ranked_chunks
+from ..rag.validators import GroundingValidator, extract_citations
+from ..providers.base import BaseLLMProvider
+from . import tools
+from .state import AgentState
+
+
+@dataclasses.dataclass
+class NodeComponents:
+    llm: BaseLLMProvider
+    retriever: Any
+    generator: Generator
+    context_builder: ContextBuilder
+    intent_classifier: IntentClassifier
+    grounding_validator: GroundingValidator
+    reranker: Any = None
+    n_candidates: int = 40
+    rerank_top_k: int = 10
+    max_generation_retries: int = 1
+    max_re_retrievals: int = 1
+    coverage_threshold: int = 80
+    enable_expert_refinement: bool = False
+    enable_completeness: bool = True
+
+
+# ------------------------------------------------------------------ rewrite
+
+REWRITE_PROMPT = """Réécris la dernière question de l'utilisateur comme une
+question autonome, en résolvant les pronoms et références implicites à
+partir de l'historique. Si elle est déjà autonome, renvoie-la telle quelle.
+Réponds uniquement par la question réécrite.
+
+Historique :
+{history}
+
+Dernière question : "{question}"
+
+Question autonome :"""
+
+
+def rewrite(c: NodeComponents, s: AgentState) -> AgentState:
+    t0 = time.time()
+    s.original_question = s.original_question or s.question
+    if s.conversation_history:
+        hist = "\n".join(
+            f"{t.get('role', 'user')}: {t.get('content', '')}"
+            for t in s.conversation_history[-6:]
+        )
+        resp = c.llm.generate(
+            REWRITE_PROMPT.format(history=hist, question=s.question),
+            temperature=0.0,
+        )
+        if resp.ok and 5 <= len(resp.text.strip()) <= 400:
+            s.question = resp.text.strip().strip('"')
+    s.record("rewrite", t0)
+    return s
+
+
+# ----------------------------------------------------------------- classify
+
+def classify(c: NodeComponents, s: AgentState) -> AgentState:
+    t0 = time.time()
+    s.intent = c.intent_classifier.classify(s.question)
+    s.record("classify", t0)
+    return s
+
+
+# --------------------------------------------------------- overlap prepare
+
+def overlap_prepare(c: NodeComponents, s: AgentState) -> AgentState:
+    """classify ∥ decompose ∥ candidate prefetch — the three
+    post-rewrite stages are independent reads of `s.question`, so they
+    run concurrently instead of serially (serving economics, VERDICT
+    r3 #3: the agent path is the reference's headline config and must
+    get the native path's treatment). On the continuous pool the
+    classify and decompose-gate choose() calls coalesce into one
+    batched dispatch (choose_batch), and the retrieval arms run on
+    device while the LLM decides. In the rare refusal route the
+    prefetch/decompose work is wasted — latency is unchanged (they ran
+    in parallel), only device occupancy is spent."""
+    t0 = time.time()
+    errors: list[BaseException] = []
+
+    def _classify():
+        tc = time.time()
+        try:
+            s.intent = c.intent_classifier.classify(s.question)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+        s.timings["classify"] = time.time() - tc
+
+    def _decompose():
+        tc = time.time()
+        try:
+            s.sub_questions = tools.decompose_question(c.llm, s.question)
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+        s.timings["decompose"] = time.time() - tc
+
+    def _prefetch():
+        tc = time.time()
+        try:
+            where = build_enterprise_where_filter(
+                s.enterprise_tags, s.where_filter)
+            s.prefetched_candidates = c.retriever.retrieve_candidates(
+                s.question, n_candidates=c.n_candidates, where=where)
+        except Exception:
+            # retrieval re-runs (and surfaces its error) in retrieve()
+            s.prefetched_candidates = None
+        s.timings["prefetch"] = time.time() - tc
+
+    threads = [threading.Thread(target=f)
+               for f in (_classify, _decompose, _prefetch)]
+    [t.start() for t in threads]
+    [t.join() for t in threads]
+    if errors:
+        raise errors[0]
+    s.node_trace.extend(["classify", "decompose"])
+    s.timings["overlap_prepare"] = time.time() - t0
+    return s
+
+
+# ------------------------------------------------------------------ refusal
+
+_OFFTOPIC_KEYWORDS = {
+    "meteo": "hors_perimetre", "météo": "hors_perimetre",
+    "recette": "hors_perimetre", "cuisine": "hors_perimetre",
+    "football": "hors_perimetre", "film": "hors_perimetre",
+    "blague": "hors_perimetre", "poème": "hors_perimetre",
+    "horoscope": "hors_perimetre",
+    "avocat": "conseil_individuel", "procès": "conseil_individuel",
+    "plainte contre": "conseil_individuel",
+    "pirater": "demande_illicite", "contourner": "demande_illicite",
+    "espionner": "demande_illicite",
+}
+
+REFUSAL_ANSWERS = {
+    "hors_perimetre": (
+        "Cette question sort du périmètre de cet assistant, qui est dédié "
+        "à la protection des données personnelles (RGPD, doctrine CNIL). "
+        "Reformulez votre demande sur un sujet de conformité : registre, "
+        "AIPD, droits des personnes, sécurité, sous-traitance…"
+    ),
+    "conseil_individuel": (
+        "Cet assistant fournit une aide documentaire générale et ne peut "
+        "pas se substituer à un conseil juridique individualisé. Pour un "
+        "contentieux ou une situation personnelle, rapprochez-vous d'un "
+        "avocat ou de votre délégué à la protection des données."
+    ),
+    "demande_illicite": (
+        "Cette demande vise une pratique contraire à la réglementation sur "
+        "la protection des données ; cet assistant ne peut pas y répondre. "
+        "Il peut en revanche documenter les obligations applicables."
+    ),
+}
+
+
+def confirm_refusal_keyword(question: str) -> str | None:
+    """Refusal fires ONLY when keyword-confirmed (reference
+    `route_after_classify` :100-113 — the LLM's `refus` label alone is not
+    trusted)."""
+    low = question.lower()
+    for kw, subtype in _OFFTOPIC_KEYWORDS.items():
+        if kw in low:
+            return subtype
+    return None
+
+
+def refusal(c: NodeComponents, s: AgentState) -> AgentState:
+    t0 = time.time()
+    subtype = s.refusal_type or "hors_perimetre"
+    s.answer = REFUSAL_ANSWERS[subtype]
+    s.model = "deterministic_refusal"
+    s.built_sources = []
+    s.record("refusal", t0)
+    return s
+
+
+# ------------------------------------------------------------------- enrich
+
+_ARTICLE_Q_RE = re.compile(r"\barticles?\s+(\d{1,2})\b", re.IGNORECASE)
+
+_DEADLINE_TRIGGERS = {
+    "violation": "violation_notification_cnil",
+    "72": "violation_notification_cnil",
+    "droit d'accès": "reponse_droits",
+    "demande d'exercice": "reponse_droits",
+    "consultation préalable": "aipd_consultation_cnil",
+}
+
+# Commonly-confused notion pairs → negative-topic guards injected so the
+# prompt explicitly excludes the sibling notion (reference CONFUSION_GUARDS
+# inside the enrich node, nodes.py:717-884).
+CONFUSION_GUARDS = {
+    "droit d'accès": ["droit à l'effacement", "portabilité"],
+    "droit à l'effacement": ["droit d'opposition", "droit d'accès"],
+    "portabilité": ["droit d'accès"],
+    "sous-traitant": ["responsable conjoint"],
+    "responsable conjoint": ["sous-traitant"],
+    "aipd": ["registre des traitements"],
+    "registre": ["analyse d'impact (AIPD)"],
+    "consentement": ["intérêt légitime"],
+    "intérêt légitime": ["consentement"],
+}
+
+
+def enrich(c: NodeComponents, s: AgentState) -> AgentState:
+    t0 = time.time()
+    for m in _ARTICLE_Q_RE.finditer(s.question):
+        info = tools.lookup_article(m.group(1))
+        if info and info not in s.detected_articles:
+            s.detected_articles.append(info)
+    low = s.question.lower()
+    seen: set[str] = set()
+    for trigger, event in _DEADLINE_TRIGGERS.items():
+        if trigger in low and event not in seen:
+            seen.add(event)
+            result = tools.calculate_deadline(event)
+            if result:
+                s.detected_deadlines.append(result)
+    for notion, guards in CONFUSION_GUARDS.items():
+        if notion in low:
+            for g in guards:
+                if g.lower() not in low and g not in s.guard_negative_topics:
+                    s.guard_negative_topics.append(g)
+    s.record("enrich", t0)
+    return s
+
+
+# ---------------------------------------------------------------- decompose
+
+def decompose(c: NodeComponents, s: AgentState) -> AgentState:
+    t0 = time.time()
+    s.sub_questions = tools.decompose_question(c.llm, s.question)
+    s.record("decompose", t0)
+    return s
+
+
+# ----------------------------------------------------------------- retrieve
+
+def retrieve(c: NodeComponents, s: AgentState) -> AgentState:
+    t0 = time.time()
+    if s.retrieval_query:
+        # targeted re-retrieval: the completeness check's suggested
+        # query takes precedence EVEN for decomposed questions — the
+        # global composite query already ran on the first pass and
+        # would only fetch the same documents again
+        query = s.retrieval_query
+    elif s.sub_questions:
+        # composite: ONE global retrieval covering all sub-questions
+        query = s.question + " " + " ".join(s.sub_questions)
+    else:
+        query = s.question
+    prefetched, s.prefetched_candidates = s.prefetched_candidates, None
+    if prefetched is not None and query == s.question:
+        # overlap_prepare already fetched this exact query's candidates
+        # concurrently with classify/decompose — reuse (the reranker
+        # still runs HERE: it needs the classified intent's topics)
+        candidates = prefetched
+    else:
+        where = build_enterprise_where_filter(s.enterprise_tags,
+                                              s.where_filter)
+        candidates = c.retriever.retrieve_candidates(
+            query, n_candidates=c.n_candidates, where=where
+        )
+    s.n_candidates = len(candidates)
+    if c.reranker is not None:
+        ranked = c.reranker.rerank(
+            s.question, candidates, top_k=c.rerank_top_k,
+            question_topics=s.intent.topics,
+        )
+    else:
+        ranked = candidates[: c.rerank_top_k]
+    new_docs = rebuild_documents_from_ranked_chunks(
+        ranked, s.n_documents, s.n_chunks_per_doc
+    )
+    if s.retrieval_query:  # targeted re-retrieval: extend, don't replace
+        known = {d.doc_key for d in s.documents}
+        s.documents = s.documents + [
+            d for d in new_docs if d.doc_key not in known
+        ]
+    else:
+        s.documents = new_docs
+    s.retrieval_query = None
+    s.record("retrieve", t0)
+    return s
+
+
+# ----------------------------------------------------------------- generate
+
+def _tool_results_block(s: AgentState, budget_chars: int = 2000) -> str:
+    """Deterministic tool results injected under a context budget
+    (reference :396-435)."""
+    parts: list[str] = []
+    for art in s.detected_articles:
+        parts.append(
+            f"[Outil article] Article {art['numero']} RGPD — "
+            f"{art['titre']} : {art['resume']}"
+        )
+    for d in s.detected_deadlines:
+        dl = f" Échéance : {d.deadline}." if d.deadline else ""
+        parts.append(
+            f"[Outil délai] {d.label} ({d.basis}) : {d.notes}{dl}"
+        )
+    block = "\n".join(parts)
+    return block[:budget_chars]
+
+
+STRUCTURED_PROMPT_SUFFIX = """
+
+La question comporte plusieurs volets. Structure ta réponse avec une
+section Markdown (##) par sous-question, dans cet ordre :
+{sections}
+
+Termine par une courte synthèse."""
+
+
+def generate(c: NodeComponents, s: AgentState) -> AgentState:
+    t0 = time.time()
+    negative = list(s.intent.negative_topics)
+    for g in s.guard_negative_topics:
+        if g not in negative:
+            negative.append(g)
+    built = c.context_builder.build_context(
+        s.question, s.documents, intent=s.intent.intent,
+        negative_topics=negative,
+        conversation_history=s.conversation_history,
+    )
+    user_prompt = built.user_prompt
+    tool_block = _tool_results_block(s)
+    if tool_block:
+        user_prompt = user_prompt.replace(
+            "Contexte documentaire :",
+            "Résultats d'outils vérifiés :\n" + tool_block
+            + "\n\nContexte documentaire :",
+            1,
+        )
+    if s.sub_questions:
+        sections = "\n".join(f"- {q}" for q in s.sub_questions)
+        user_prompt += STRUCTURED_PROMPT_SUFFIX.format(sections=sections)
+
+    temperature = s.temperature
+    if s.generation_retries and s.grounding_issues:
+        # a retry with bitwise-identical inputs cannot change a
+        # (near-)deterministic model's answer: feed the validator's
+        # findings back and loosen sampling slightly
+        issues = "; ".join(s.grounding_issues[:5])
+        user_prompt += (
+            "\n\nATTENTION — la réponse précédente a été rejetée pour "
+            f"les problèmes suivants : {issues}. Corrige-les : ne cite "
+            "que des faits présents dans les sources, avec les vrais "
+            "numéros [Source N]."
+        )
+        temperature = min((temperature or 0.0) + 0.2, 0.7)
+
+    if s.on_delta is not None:
+        if s.generation_retries or s.re_retrievals:
+            s.on_delta(None)  # reset marker: new attempt replaces draft
+        gen = c.generator.generate_streamed(
+            built.system_prompt, user_prompt, temperature=temperature,
+            on_delta=s.on_delta)
+    else:
+        gen = c.generator.generate(built.system_prompt, user_prompt,
+                                   temperature=temperature)
+    answer = gen.text
+    # strip a model-invented "Sources" trailer (ours is appended at
+    # respond). The pattern requires the colon — an optional colon would
+    # anchor at any in-prose line starting "Source 1 indique…" and, with
+    # DOTALL, wipe the rest of the answer.
+    answer = re.sub(r"\n+#{0,3}\s*Sources?\s*:.*$", "", answer,
+                    flags=re.IGNORECASE | re.DOTALL)
+    # strip fictitious non-Source tags the model sometimes invents
+    # (reference nodes.py:460-472 removes literal "[Pratique RGPD]")
+    answer = re.sub(r"\[(?:Bonne\s+)?(?:Pratique|Conseil)\s+RGPD\]\s*",
+                    "", answer, flags=re.IGNORECASE)
+    s.answer = answer
+    s.model = gen.model
+    s.built_sources = built.sources
+    s.context_text = built.context_text
+    if not gen.ok:
+        s.error = gen.error
+    s.record("generate", t0)
+    return s
+
+
+# ------------------------------------------------------- expert refinement
+
+REFINE_PROMPT = """Améliore la structure et la lisibilité de la réponse
+suivante SANS changer son contenu factuel ni ses citations [Source N].
+Conserve toutes les citations. Réponds uniquement par la réponse améliorée.
+
+{answer}"""
+
+
+def expert_refinement(c: NodeComponents, s: AgentState) -> AgentState:
+    t0 = time.time()
+    resp = c.llm.generate(REFINE_PROMPT.format(answer=s.answer),
+                          temperature=0.0)
+    if resp.ok:
+        refined = resp.text.strip()
+        lost_citations = set(extract_citations(s.answer)) - \
+            set(extract_citations(refined))
+        grew_too_much = (
+            len(refined) > 1.8 * len(s.answer)
+            or len(refined) > len(s.answer) + 500
+        )
+        if refined and not lost_citations and not grew_too_much:
+            s.answer = refined
+    s.record("expert_refinement", t0)
+    return s
+
+
+# ----------------------------------------------------------------- validate
+
+def validate(c: NodeComponents, s: AgentState) -> AgentState:
+    t0 = time.time()
+    report = c.grounding_validator.validate(
+        s.answer, s.context_text, n_sources=len(s.built_sources)
+    )
+    s.grounded = report.grounded
+    s.grounding_issues = report.issues
+    if report.invented_sources:
+        s.answer = c.grounding_validator.fix_invented_sources(
+            s.answer, len(s.built_sources)
+        )
+    s.record("validate", t0)
+    return s
+
+
+def should_retry_generation(c: NodeComponents, s: AgentState) -> bool:
+    """Graduated policy (reference :147-168, 649-671): severe hallucination
+    (≥3 issues) retries; invented sources alone are auto-fixed; minor
+    issues pass through."""
+    severe = len(s.grounding_issues) >= 3
+    return severe and s.generation_retries < c.max_generation_retries
+
+
+# --------------------------------------------------------- completeness
+
+def check_completeness(c: NodeComponents, s: AgentState) -> AgentState:
+    t0 = time.time()
+    result = tools.check_answer_completeness(
+        c.llm, s.question, s.answer,
+        query_if_below=c.coverage_threshold)
+    s.coverage_pct = result.coverage_pct
+    if (result.coverage_pct < c.coverage_threshold
+            and result.suggested_queries
+            and s.re_retrievals < c.max_re_retrievals):
+        s.retrieval_query = result.suggested_queries[0]
+    s.record("check_completeness", t0)
+    return s
+
+
+def should_re_retrieve(c: NodeComponents, s: AgentState) -> bool:
+    return s.retrieval_query is not None
+
+
+# ------------------------------------------------------------------ respond
+
+def respond(c: NodeComponents, s: AgentState) -> AgentState:
+    t0 = time.time()
+    s.answer = fix_markdown_formatting(s.answer)
+    if s.built_sources:
+        s.answer, s.built_sources = \
+            c.context_builder.format_response_with_sources(
+                s.answer, s.built_sources
+            )
+    s.record("respond", t0)
+    return s

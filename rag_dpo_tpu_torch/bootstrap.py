@@ -1,13 +1,13 @@
-"""Bootstrap: FrameworkConfig + on-disk artifacts → the ready query pipeline.
+"""Bootstrap: FrameworkConfig + on-disk artifacts → the ready pipelines.
 
-Port of `rag_dpo_tpu/bootstrap.py` for slice 1 of the port: the typed
-config (`utils.config`, the JAX package's, copied) drives the index,
-embedder, BM25 stats, summary prefilter, retriever recipe, reranker, LLM
-provider, query logger and alerter of the sequential `RAGPipeline`.
-
-Not in this slice, and raising `NotImplementedError` that names the
-ROADMAP item: the agent pipeline (`Stack.agent` is None), LLM modes other
-than an injected provider or `fake`, and the coalescing batchers.
+Port of `rag_dpo_tpu/bootstrap.py`: the typed config (`utils.config`, the
+JAX package's, copied) drives the index, embedder, BM25 stats, summary
+prefilter, retriever recipe, the one reranker both orchestrators share,
+the LLM provider (`providers.factory.create_llm`), the sequential
+`RAGPipeline`, the agent (`agent.create_agent_pipeline`), the coalescing
+batchers of query encode and rerank, the query logger and the alerter.
+`try_build_stack` is the app surfaces' selection rule. Only `llm.mode
+"tpu"`, the in-process decoder, still raises (ROADMAP item 7b).
 """
 
 from __future__ import annotations
@@ -33,18 +33,14 @@ class Stack:
     summary_index: Any
     llm: Any
     pipeline: Any          # sequential RAGPipeline
-    agent: Any             # None until the agent is ported
+    agent: Any             # RAGAgentPipeline
     query_logger: Any
     alerter: Any
 
     def active(self, use_agent: bool | None = None):
         if use_agent is None:
             use_agent = self.config.agent.enable
-        if use_agent:
-            raise NotImplementedError(
-                "the agent pipeline is not ported yet (ROADMAP, port queue "
-                "item 2: agent/)")
-        return self.pipeline
+        return self.agent if use_agent else self.pipeline
 
 
 def _load_bm25_stats(index):
@@ -60,14 +56,47 @@ def _load_bm25_stats(index):
 
 
 def _create_llm(config: FrameworkConfig):
-    if config.llm.mode == "fake":
-        from .providers import FakeLLMProvider
+    """The configured provider; mode "tpu" gets the decoder's settings, as
+    in the JAX bootstrap (and raises until the decoder is ported)."""
+    from .providers.factory import create_llm
 
-        return FakeLLMProvider()
-    raise NotImplementedError(
-        f"LLM mode {config.llm.mode!r} is not ported yet (ROADMAP, port "
-        "queue item 7: generation and serving); inject an llm or use "
-        "mode 'fake'")
+    c = config.llm
+    tpu_kwargs = {}
+    if c.mode == "tpu":
+        tpu_kwargs = dict(
+            checkpoint_path=c.checkpoint_path,
+            tokenizer_path=c.tokenizer_path,
+            arch=c.arch,
+            quantize_int8=c.quantize_int8,
+            quantize_kv=c.quantize_kv,
+            scheduler=c.scheduler,
+            speculative=c.speculative,
+            max_batch=c.max_batch,
+            prefix_cache=c.prefix_cache,
+            prefix_block=c.prefix_block,
+            prefix_cache_host=c.prefix_cache_host,
+            prefill_chunk=c.prefill_chunk,
+            decode_chunk=c.decode_chunk,
+            top_p=c.top_p,
+            request_timeout_s=c.request_timeout_s or None,
+            age_steps=c.age_steps,
+            preemption=c.preemption,
+            choose_batch=c.choose_batch,
+        )
+    return create_llm(c.mode, base_url=c.base_url, model=c.model,
+                      **tpu_kwargs)
+
+
+def try_build_stack(paths: Paths | None = None, llm=None,
+                    config_path=None, device=None) -> "Stack | None":
+    """The app surfaces' selection rule: a saved index checkpoint routes
+    to the config-driven stack; None means there is none (the JAX
+    package's surfaces then fall back to their demo stack)."""
+    paths = paths or default_paths()
+    if not (paths.index_dir / "manifest.json").exists():
+        return None
+    return build_stack(load_config(config_path), paths, llm=llm,
+                       device=device)
 
 
 def build_stack(
@@ -79,9 +108,10 @@ def build_stack(
     reranker=None,
     device=None,
 ) -> Stack:
-    """Load the saved index + summaries and wire the pipeline per config.
-    Components may be injected; anything not injected is built on
+    """Load the saved index + summaries and wire both orchestrators per
+    config. Components may be injected; anything not injected is built on
     `device` (default: the first CUDA card; `"cpu"` must be asked for)."""
+    from .agent import create_agent_pipeline
     from .index import DeviceIndex
     from .providers import Embedder, EmbedderConfig
     from .rag import create_pipeline
@@ -90,10 +120,6 @@ def build_stack(
 
     config = config or load_config()
     paths = (paths or default_paths()).ensure()
-    if config.embedding.query_batch > 0 or config.retrieval.rerank_batch > 0:
-        raise NotImplementedError(
-            "coalesced query/rerank batching is not ported yet (ROADMAP, "
-            "port queue item 7: serving)")
 
     if llm is None:
         llm = _create_llm(config)
@@ -131,6 +157,12 @@ def build_stack(
             )
         else:
             embedder = Embedder(EmbedderConfig(**kwargs), device=device)
+    # injected embedders too (enable is idempotent), as in the JAX
+    # bootstrap: the config said coalesce
+    if config.embedding.query_batch > 0 and \
+            hasattr(embedder, "enable_query_batching"):
+        embedder.enable_query_batching(
+            max_batch=int(config.embedding.query_batch))
 
     # the query encoder MUST produce vectors in the index's space
     if embedder.dim != index.config.dim:
@@ -168,10 +200,12 @@ def build_stack(
         use_sparse=r.hybrid,
         dense_exact=r.dense_exact,
     )
+    # ONE cross-encoder for both orchestrators: one set of weights on the
+    # card, and pair-scoring coalesces across both when rerank_batch is on
     if reranker is None and r.use_reranker:
         from .retrieval.reranker import default_reranker
 
-        reranker = default_reranker(embedder)
+        reranker = default_reranker(embedder, rerank_batch=r.rerank_batch)
     pipeline = create_pipeline(
         index, embedder, llm,
         bm25_stats=bm25_stats, summary_index=summary_index, texts=None,
@@ -184,6 +218,20 @@ def build_stack(
         rerank_top_k=r.rerank_top_k,
         max_context_chars=r.max_context_chars,
         generation_temperature=config.llm.temperature,
+    )
+    agent = create_agent_pipeline(
+        index, embedder, llm,
+        bm25_stats=bm25_stats, summary_index=summary_index, texts=None,
+        retriever_config=retriever_config,
+        reranker=reranker,
+        n_candidates=r.n_candidates,
+        rerank_top_k=r.rerank_top_k,
+        max_context_chars=r.max_context_chars,
+        enable_expert_refinement=config.agent.enable_expert_refinement,
+        enable_completeness=config.agent.enable_completeness,
+        generation_temperature=config.llm.temperature,
+        intent_fast=r.intent_fast,
+        expansion_parallel=r.expansion_parallel,
     )
 
     o = config.observability
@@ -201,6 +249,6 @@ def build_stack(
     return Stack(
         config=config, paths=paths, index=index, embedder=embedder,
         bm25_stats=bm25_stats, summary_index=summary_index, llm=llm,
-        pipeline=pipeline, agent=None,
+        pipeline=pipeline, agent=agent,
         query_logger=query_logger, alerter=alerter,
     )

@@ -511,12 +511,47 @@ class DeviceIndex:
             i, order, axis=1
         )
 
+    def warm(self, batch_sizes: Sequence[int] = (1, 64, 256),
+             k: int = 10, sparse_terms: int = 16):
+        """Run the search engines once at each query batch shape before
+        live traffic, results discarded (zero-vector queries with one unit
+        column, one live term). On the card, first load every kernel the
+        engines launch: a library's first use runs nvcc (seconds), and a
+        server's micro-batcher thread must not hold its waiting callers
+        behind it. Then, as in the JAX store, the searches: the device
+        image, the postings inversion and the allocator's first blocks of
+        each shape are made here instead of on the first live request."""
+        if self.device.type == "cuda":
+            from ..ops import _kernels
+
+            # K3 for the sparse arm below the postings threshold; K4 for
+            # bf16 rows (the int8 arms run `torch._int_mm` and plain passes)
+            for name in (("ell_topk",) if self.config.quantize_int8
+                         else ("ell_topk", "fused_topk")):
+                _kernels.load(name)
+        if not self.n_rows:
+            return
+        d = self.config.dim
+        for b in batch_sizes:
+            q = np.zeros((int(b), d), np.float32)
+            q[:, 0] = 1.0
+            self.search_dense(q, k)
+            if sparse_terms:
+                qt = np.full((int(b), sparse_terms), -2, np.int32)
+                qt[:, 0] = 0
+                qw = np.ones((int(b), sparse_terms), np.float32)
+                self.search_sparse(qt, qw, k)
+
     def colbert_vectors(self, rows: Sequence[int]) -> np.ndarray:
         """Host f16 ColBERT rows [len(rows), colbert_len, colbert_dim],
         zero past each chunk's length."""
         if self._colbert is None:
             raise ValueError("index built without colbert")
         return self._colbert[np.asarray(rows)]
+
+    def dense_vectors(self, rows: Sequence[int]) -> np.ndarray:
+        """Host dense rows [len(rows), dim] in f32."""
+        return self._dense[np.asarray(rows)].astype(np.float32)
 
     def chunk_ids(self, rows) -> list[str | None]:
         return [self.ids[r] if r >= 0 else None for r in np.asarray(rows)]

@@ -16,6 +16,8 @@ port on a machine without `nvcc` or a card.
 Launch counters: a wrapper adds one to `LAUNCHES[name]` each time it
 launches its kernel, and a plain twin adds one to `PLAIN_ON_CUDA[name]`
 each time it runs on a CUDA tensor, so a run can show which path it took.
+Both add under a lock (`count_launch`, `count_plain`): serving launches
+kernels from several threads at once.
 """
 
 from __future__ import annotations
@@ -87,10 +89,24 @@ _libs: dict[str, ctypes.CDLL] = {}  # by source
 _bound: set[str] = set()  # kernels whose entry point has its signature
 
 
+_count_lock = threading.Lock()
+
+
 def reset_counts() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
-        PLAIN_ON_CUDA[name] = 0
+    with _count_lock:
+        for name in KERNELS:
+            LAUNCHES[name] = 0
+            PLAIN_ON_CUDA[name] = 0
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
+def count_plain(name: str) -> None:
+    with _count_lock:
+        PLAIN_ON_CUDA[name] += 1
 
 
 def _nvcc() -> str:

@@ -75,7 +75,7 @@ def flash_attention_plain(q, k, v, lengths=None, scale: float | None = None,
     """Plain twin of the flash kernel: the online softmax of the reference
     collapsed to a single key block. lse is [B, H, S, 1] f32."""
     if q.is_cuda:
-        _kernels.PLAIN_ON_CUDA["flash_fwd"] += 1
+        _kernels.count_plain("flash_fwd")
     lengths, scale = _defaults(q, lengths, scale)
     s = q.shape[2]
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
@@ -125,5 +125,5 @@ def flash_attention(q, k, v, lengths=None, scale: float | None = None,
             _kernels.ptr(v), _kernels.ptr(lengths), _kernels.ptr(out),
             _kernels.ptr(lse), b, h, s, dh, scale, _kernels.stream_of(q))
     _kernels.check(lib, err, "flash_fwd")
-    _kernels.LAUNCHES["flash_fwd"] += 1
+    _kernels.count_launch("flash_fwd")
     return (out, lse) if return_lse else out

@@ -63,7 +63,7 @@ def _query_rows_ok(q, lengths):
 def flash_bwd_dq_plain(q, k, v, lengths, lse, dd, g, scale):
     """Plain twin of `flash_bwd_dq`: dQ = scale·dS·K, 0 on rows ≥ length."""
     if q.is_cuda:
-        _kernels.PLAIN_ON_CUDA["flash_bwd_dq"] += 1
+        _kernels.count_plain("flash_bwd_dq")
     _, ds = _probs_and_dscores(q, k, v, lengths, lse, g, dd, scale)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
     return torch.where(_query_rows_ok(q, lengths), dq, 0.0).to(q.dtype)
@@ -73,7 +73,7 @@ def flash_bwd_dkv_plain(q, k, v, lengths, lse, dd, g, scale):
     """Plain twin of `flash_bwd_dkv`: dK = scale·dSᵀ·Q and dV = Pᵀ·dO over
     query rows < length."""
     if q.is_cuda:
-        _kernels.PLAIN_ON_CUDA["flash_bwd_dkv"] += 1
+        _kernels.count_plain("flash_bwd_dkv")
     p, ds = _probs_and_dscores(q, k, v, lengths, lse, g, dd, scale)
     rows = _query_rows_ok(q, lengths)
     p, ds = torch.where(rows, p, 0.0), torch.where(rows, ds, 0.0)
@@ -130,7 +130,7 @@ def flash_bwd_dq(q, k, v, lengths, lse, dd, g, scale: float):
             _KERNEL_DTYPES[q.dtype], *map(_kernels.ptr, args),
             _kernels.ptr(dq), *args[0].shape, scale, _kernels.stream_of(q))
     _kernels.check(lib, err, "flash_bwd_dq")
-    _kernels.LAUNCHES["flash_bwd_dq"] += 1
+    _kernels.count_launch("flash_bwd_dq")
     return _unpad(dq, q.shape[-1])
 
 
@@ -147,7 +147,7 @@ def flash_bwd_dkv(q, k, v, lengths, lse, dd, g, scale: float):
             _kernels.ptr(dk), _kernels.ptr(dv), *args[0].shape, scale,
             _kernels.stream_of(q))
     _kernels.check(lib, err, "flash_bwd_dkv")
-    _kernels.LAUNCHES["flash_bwd_dkv"] += 1
+    _kernels.count_launch("flash_bwd_dkv")
     return _unpad(dk, q.shape[-1]), _unpad(dv, q.shape[-1])
 
 

@@ -129,7 +129,7 @@ def int8_block_max_plain(q_i8, e_i8, *, block: int = 2048, upcast: str):
     name = _kernel_name(block, upcast)
     _check_inputs(q_i8, e_i8)
     if e_i8.is_cuda:
-        _kernels.PLAIN_ON_CUDA[name] += 1
+        _kernels.count_plain(name)
     q, nb = q_i8.shape[0], e_i8.shape[0] // block
     s = q_i8.double() @ e_i8[: nb * block].double().T          # [Q, nb·block]
     s = s.reshape(q, nb, block // LANES, LANES).amax(dim=2)
@@ -163,7 +163,7 @@ def _int8_block_max_kernel(q_i8, e_i8, block: int, name: str):
             _kernels.ptr(q_i8), _kernels.ptr(e_i8), q, n, d, block, *plan,
             _kernels.ptr(out), _kernels.stream_of(e_i8))
     _kernels.check(lib, err, name)
-    _kernels.LAUNCHES[name] += 1
+    _kernels.count_launch(name)
     return out
 
 

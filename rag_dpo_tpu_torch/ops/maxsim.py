@@ -87,7 +87,7 @@ def maxsim_plain(qv, q_mask, dv, d_mask):
     """Plain twin of the MaxSim kernel: the oracle itself, since the kernel
     computes the same dots, maxima and sum (in another summation order)."""
     if dv.is_cuda:
-        _kernels.PLAIN_ON_CUDA["maxsim"] += 1
+        _kernels.count_plain("maxsim")
     return maxsim_reference(qv, q_mask, dv, d_mask)
 
 
@@ -145,7 +145,7 @@ def _maxsim_kernel(qv, q_mask, dv, d_mask):
             plan.row_tile, plan.query_tile, plan.stages, ws.data_ptr(),
             ws.data_ptr() + 4 * slots, out.data_ptr(), stream)
     _kernels.check(lib, err, "maxsim")
-    _kernels.LAUNCHES["maxsim"] += 1
+    _kernels.count_launch("maxsim")
     return out
 
 

@@ -41,7 +41,7 @@ def pooled_group_max_plain(queries_bf16, e_i8, e_scale, penalty=None, *,
     then max and first argmax over each strided group."""
     _check_blocks(block_n, group)
     if e_i8.is_cuda:
-        _kernels.PLAIN_ON_CUDA["pooled_max"] += 1
+        _kernels.count_plain("pooled_max")
     q = queries_bf16.shape[0]
     n = e_i8.shape[0]
     dev = e_i8.device
@@ -135,7 +135,7 @@ def _pooled_max_kernel(queries_bf16, e_i8, e_scale, penalty, block_n: int,
             _kernels.ptr(out_v), _kernels.ptr(out_i),
             _kernels.stream_of(e_i8))
     _kernels.check(lib, err, "pooled_max")
-    _kernels.LAUNCHES["pooled_max"] += 1
+    _kernels.count_launch("pooled_max")
     return out_v, out_i
 
 

@@ -68,7 +68,7 @@ def ell_topk_plain(doc_terms, doc_impacts, q_terms, q_weights, k: int,
     """Plain twin of the ELL kernel: full scores, then the reference's
     streaming top-k order. Returns [Q, min(k, N)]."""
     if doc_terms.is_cuda:
-        _kernels.PLAIN_ON_CUDA["ell_topk"] += 1
+        _kernels.count_plain("ell_topk")
     n = doc_terms.shape[0]
     s = ell_scores(doc_terms, doc_impacts, q_terms, q_weights)
     return streaming_topk_reference(s, min(k, n), block_n=block_n, n_valid=n)
@@ -158,7 +158,7 @@ def _ell_topk_kernel(doc_terms, doc_impacts, q_terms, q_weights, k: int,
             _kernels.ptr(scratch), out_s.data_ptr(), out_i.data_ptr(),
             _kernels.stream_of(doc_terms))
     _kernels.check(lib, err, "ell_topk")
-    _kernels.LAUNCHES["ell_topk"] += 1
+    _kernels.count_launch("ell_topk")
     return out_s, out_i
 
 

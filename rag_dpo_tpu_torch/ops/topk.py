@@ -208,7 +208,7 @@ def fused_topk_plain(queries, embs, k: int, *, penalty=None):
     """Plain twin of K4: a matmul, the penalty and a stable descending
     sort. Returns ([Q, k] f32, [Q, k] int32), (−1e30, −1) past N."""
     if embs.is_cuda:
-        _kernels.PLAIN_ON_CUDA["fused_topk"] += 1
+        _kernels.count_plain("fused_topk")
     n = embs.shape[0]
     s = _scores(queries, embs)
     if penalty is not None:
@@ -290,7 +290,7 @@ def _fused_topk_kernel(queries, embs, k: int, penalty):
             _kernels.ptr(cand_s), _kernels.ptr(cand_i), _kernels.ptr(out_s),
             _kernels.ptr(out_i), _kernels.stream_of(embs))
     _kernels.check(lib, err, "fused_topk")
-    _kernels.LAUNCHES["fused_topk"] += 1
+    _kernels.count_launch("fused_topk")
     if kk < k:
         out_s = torch.nn.functional.pad(out_s, (0, k - kk), value=NEG_INF)
         out_i = torch.nn.functional.pad(out_i, (0, k - kk), value=-1)
@@ -385,7 +385,7 @@ def seg_candidates_plain(queries, embs, *, penalty=None, block_n: int = 2048,
     reference masks its picks with. Picks ≤ −5e29 get id −1. Position
     `j·nseg·per_seg + r·nseg + g` holds round r of segment g of block j."""
     if embs.is_cuda:
-        _kernels.PLAIN_ON_CUDA["fused_candidates"] += 1
+        _kernels.count_plain("fused_candidates")
     q, n = queries.shape[0], embs.shape[0]
     nb, nseg = -(-n // block_n), block_n // seg
     s = _scores(queries, embs)
@@ -438,7 +438,7 @@ def _seg_candidates_kernel(queries, embs, penalty, block_n, tile_q, seg,
             _kernels.ptr(scr_s), _kernels.ptr(scr_i), _kernels.ptr(out_s),
             _kernels.ptr(out_i), _kernels.stream_of(embs))
     _kernels.check(lib, err, "fused_candidates")
-    _kernels.LAUNCHES["fused_candidates"] += 1
+    _kernels.count_launch("fused_candidates")
     return out_s, out_i
 
 

@@ -3,8 +3,11 @@
 Port of `rag_dpo_tpu/providers/embedding.py` with the same batch buckets
 (1, 8, 64), the same sequence buckets (`tokenize.base.bucket_length`), and
 the same `embed` / `embed_queries` outputs. The TPU-only tiny-fetch sync is
-gone: the host copy of the outputs is the synchronisation. Coalesced query
-batching belongs to the serving slice (ROADMAP).
+gone: the host copy of the outputs is the synchronisation. With
+`enable_query_batching`, concurrent `embed_queries` calls coalesce into
+one encoder forward on the batcher's thread (`serving.batcher`), padded to
+the same batch buckets as the JAX package's (1, 8, 64, then powers of
+two). `load_converted` (HF state dicts) waits for ROADMAP item 15.
 """
 
 from __future__ import annotations
@@ -55,8 +58,11 @@ class Embedder:
         self._params = params
         self._rng_seed = rng_seed
         self.model: BgeM3Model | None = None
+        self._query_batcher = None   # see enable_query_batching
         # bound in-flight encoder forwards under concurrent callers, as
-        # the JAX provider does: each forward holds its activations
+        # the JAX provider does: each forward holds its activations. The
+        # coalesced path does not take a slot while it waits on the
+        # batcher: its one forward at a time runs on the batcher's thread
         self._dispatch_slots = threading.Semaphore(2)
 
     @property
@@ -70,6 +76,12 @@ class Embedder:
             self.model = build_bge_m3(self.config.model, self._params,
                                       self._rng_seed, self.device).eval()
         return self.model
+
+    def unload(self):
+        """Drop the weights; the next `load` builds seeded random ones, as
+        the JAX provider's `unload` drops its parameters."""
+        self.model = None
+        self._params = None
 
     # ------------------------------------------------------------- encode
     def _batch_bucket(self, b: int) -> int:
@@ -92,11 +104,17 @@ class Embedder:
             lengths = np.concatenate(
                 [lengths, np.ones((b_bucket - b,), np.int32)]
             )
+        with self._dispatch_slots:
+            out = self._forward(model, ids, lengths)
+        return out, b, enc
+
+    def _forward(self, model, ids: np.ndarray, lengths: np.ndarray):
+        """One encoder forward on `self.device`, named on every tensor:
+        the batcher's thread has a current device of its own."""
         ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int64))
         len_t = torch.from_numpy(np.ascontiguousarray(lengths, np.int32))
-        with self._dispatch_slots, torch.inference_mode():
-            out = model(ids_t.to(self.device), len_t.to(self.device))
-        return out, b, enc
+        with torch.inference_mode():
+            return model(ids_t.to(self.device), len_t.to(self.device))
 
     def embed(self, texts: Sequence[str], *, return_sparse: bool = False,
               return_colbert: bool = False):
@@ -138,8 +156,62 @@ class Embedder:
             result["colbert"] = out_colbert
         return result
 
+    def embed_query(self, text: str) -> np.ndarray:
+        return self.embed_queries([text])[0]
+
     def embed_queries(self, texts: Sequence[str]) -> np.ndarray:
-        """Query encode (shorter bucket) → [B, H] f32 L2-normalized."""
-        out, b, _ = self._encode_padded(list(texts),
-                                        self.config.query_max_len)
+        """Query encode (shorter bucket) → [B, H] f32 L2-normalized.
+        With `enable_query_batching`, concurrent callers coalesce into
+        one encoder forward (rows are independent under the per-row key
+        mask; the coalesced GEMMs' shapes differ, so a vector may differ
+        from the direct one in its last bits)."""
+        cfg = self.config
+        texts = list(texts)
+        if self._query_batcher is not None and texts:
+            enc = self.tokenizer.encode_batch(texts, cfg.query_max_len)
+            rows = np.concatenate(
+                [enc.input_ids,
+                 np.asarray(enc.lengths, np.int32)[:, None]],
+                axis=1).astype(np.int32)
+            (dense,) = self._query_batcher(rows)
+            return dense
+        out, b, _ = self._encode_padded(texts, cfg.query_max_len)
         return out.dense[:b].float().cpu().numpy()
+
+    def enable_query_batching(self, max_batch: int = 64,
+                              max_wait_ms: float = 3.0) -> None:
+        """Coalesce concurrent embed_queries calls into one encoder
+        forward (`serving.batcher.MicroBatcher`): under concurrent serving
+        each query encodes its few expansion variants in its own small
+        forward, each a full sweep of the encoder's weights. Idempotent."""
+        if self._query_batcher is not None:
+            return
+        from ..serving.batcher import MicroBatcher
+
+        self._query_batcher = MicroBatcher(
+            self._query_batch_fn, max_batch=max_batch,
+            max_wait_ms=max_wait_ms)
+
+    def _query_batch_fn(self, stacked: np.ndarray, key):
+        """MicroBatcher fn: rows are [query_max_len ids | true length]
+        int32. The sequence bucket comes from the coalesced batch's
+        longest row; the batch pads as the JAX provider's does: to the
+        batch buckets up to the largest, past it to a power of two. Pad
+        rows have length 1 and are cut off."""
+        cfg = self.config
+        model = self.load()
+        ids_full, lengths = stacked[:, :-1], stacked[:, -1]
+        b = stacked.shape[0]
+        seq = min(bucket_length(int(lengths.max())), cfg.query_max_len)
+        ids = ids_full[:, :seq]
+        b_bucket = self._batch_bucket(
+            b if b <= max(cfg.batch_buckets)
+            else 1 << (b - 1).bit_length())
+        if b_bucket != b:
+            ids = np.concatenate(
+                [ids, np.full((b_bucket - b, seq),
+                              self.tokenizer.pad_id, np.int32)])
+            lengths = np.concatenate(
+                [lengths, np.ones((b_bucket - b,), np.int32)])
+        out = self._forward(model, ids, lengths)
+        return (out.dense[:b].float().cpu().numpy(),)

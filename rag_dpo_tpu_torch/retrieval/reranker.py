@@ -8,7 +8,9 @@ incoming order on any error. That last rule would also hide a kernel
 failure, so the smoke asserts every reranked chunk carries a
 `rerank_score`. `MaxSimReranker` scores the stored ColBERT rows with the
 MaxSim kernel (`ops.maxsim`) and, as in the reference, has no fallback.
-Pair batching belongs to the serving slice of the port (ROADMAP).
+With `enable_pair_batching`, concurrent `score_pairs` calls coalesce into
+shared cross-encoder forwards on the batcher's thread (`serving.batcher`),
+padded to the direct path's power-of-two batches.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ class CrossEncoderReranker:
         self._rng_seed = rng_seed
         self.model: CrossEncoderModel | None = None
         self.topic_matcher = topic_matcher
+        self._pair_batcher = None   # see enable_pair_batching
 
     def load(self) -> CrossEncoderModel:
         """Lazy model build (reference `_load_model` at :74-108)."""
@@ -77,32 +80,70 @@ class CrossEncoderReranker:
         return self.model
 
     def score_pairs(self, pairs: Sequence[tuple[str, str]]) -> np.ndarray:
-        """Sigmoid relevance scores for (query, passage) pairs."""
-        model = self.load()
+        """Sigmoid relevance scores for (query, passage) pairs. With
+        `enable_pair_batching`, concurrent callers' pairs coalesce into
+        shared cross-encoder forwards (rows are independent under the
+        per-row key mask)."""
         cfg = self.config
+        if self._pair_batcher is not None and len(pairs):
+            enc = self.tokenizer.encode_pairs(list(pairs), cfg.max_len)
+            rows = np.concatenate(
+                [enc.input_ids,
+                 np.asarray(enc.lengths, np.int32)[:, None]],
+                axis=1).astype(np.int32)
+            (scores,) = self._pair_batcher(rows)
+            return scores
         out = []
         for i in range(0, len(pairs), cfg.batch_size):
-            batch = list(pairs[i : i + cfg.batch_size])
-            enc = self.tokenizer.encode_pairs(batch, cfg.max_len)
-            seq = min(bucket_length(int(enc.lengths.max())), cfg.max_len)
-            ids = enc.input_ids[:, :seq]
-            b = len(batch)
-            b_pad = max(8, 1 << (b - 1).bit_length())
-            lengths = enc.lengths
-            if b_pad != b:
-                ids = np.concatenate([
-                    ids,
-                    np.full((b_pad - b, seq), self.tokenizer.pad_id, np.int32),
-                ])
-                lengths = np.concatenate(
-                    [lengths, np.ones((b_pad - b,), np.int32)]
-                )
-            ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int64))
-            len_t = torch.from_numpy(np.ascontiguousarray(lengths, np.int32))
-            with torch.inference_mode():
-                logits = model(ids_t.to(self.device), len_t.to(self.device))
-                out.append(torch.sigmoid(logits)[:b].cpu().numpy())
+            enc = self.tokenizer.encode_pairs(
+                list(pairs[i : i + cfg.batch_size]), cfg.max_len)
+            out.append(self._scores(enc.input_ids, enc.lengths))
         return np.concatenate(out) if out else np.zeros((0,), np.float32)
+
+    def _scores(self, ids_full: np.ndarray, lengths: np.ndarray
+                ) -> np.ndarray:
+        """One padded forward: the sequence bucket of the longest row, the
+        batch padded to a power of two (at least 8) with length-1 rows,
+        which are cut off. Every tensor names `self.device`: the batcher's
+        thread has a current device of its own."""
+        model = self.load()
+        cfg = self.config
+        seq = min(bucket_length(int(lengths.max())), cfg.max_len)
+        ids = ids_full[:, :seq]
+        b = ids.shape[0]
+        b_pad = max(8, 1 << (b - 1).bit_length())
+        if b_pad != b:
+            ids = np.concatenate([
+                ids,
+                np.full((b_pad - b, seq), self.tokenizer.pad_id, np.int32),
+            ])
+            lengths = np.concatenate(
+                [lengths, np.ones((b_pad - b,), np.int32)]
+            )
+        ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int64))
+        len_t = torch.from_numpy(np.ascontiguousarray(lengths, np.int32))
+        with torch.inference_mode():
+            logits = model(ids_t.to(self.device), len_t.to(self.device))
+            return torch.sigmoid(logits)[:b].cpu().numpy()
+
+    def enable_pair_batching(self, max_batch: int | None = None,
+                             max_wait_ms: float = 3.0) -> None:
+        """Coalesce concurrent score_pairs calls into shared cross-encoder
+        forwards (`serving.batcher.MicroBatcher`). `max_batch` defaults to
+        `config.batch_size`, the direct path's largest batch. Idempotent."""
+        if self._pair_batcher is not None:
+            return
+        from ..serving.batcher import MicroBatcher
+
+        self._pair_batcher = MicroBatcher(
+            self._pair_batch_fn,
+            max_batch=(self.config.batch_size if max_batch is None
+                       else max_batch),
+            max_wait_ms=max_wait_ms)
+
+    def _pair_batch_fn(self, stacked: np.ndarray, key):
+        """MicroBatcher fn: rows are [max_len ids | true length] int32."""
+        return (self._scores(stacked[:, :-1], stacked[:, -1]),)
 
     def rerank(
         self,
@@ -150,18 +191,17 @@ class CrossEncoderReranker:
 def default_reranker(embedder, model_config=None,
                      rerank_batch: int = 0) -> "CrossEncoderReranker":
     """The default production reranker: cross-encoder + topic matcher,
-    on the embedder's device. Pair batching (`rerank_batch` > 0) belongs
-    to the serving slice of the port."""
+    on the embedder's device. `rerank_batch` > 0 coalesces concurrent
+    pair-scoring."""
     from ..rag.topics import TopicMatcher
 
-    if rerank_batch > 0:
-        raise NotImplementedError(
-            "rerank pair batching is not ported yet (ROADMAP, port queue "
-            "item 7: serving)")
-    return CrossEncoderReranker(
+    rr = CrossEncoderReranker(
         model_config=model_config,
         topic_matcher=TopicMatcher(embedder),
         device=getattr(embedder, "device", None))
+    if rerank_batch > 0:
+        rr.enable_pair_batching(max_batch=int(rerank_batch))
+    return rr
 
 
 class MaxSimReranker:

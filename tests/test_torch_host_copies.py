@@ -16,6 +16,11 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 COPIES = [
+    "agent/__init__.py",
+    "agent/graph.py",
+    "agent/nodes.py",
+    "agent/state.py",
+    "agent/tools.py",
     "index/__init__.py",
     "index/metadata.py",
     "retrieval/types.py",
@@ -28,8 +33,11 @@ COPIES = [
     "rag/pipeline.py",
     "rag/topics.py",
     "rag/validators.py",
+    "providers/__init__.py",
     "providers/base.py",
     "providers/fake.py",
+    "providers/http_llm.py",
+    "serving/batcher.py",
     "evals/__init__.py",
     "evals/retrieval_eval.py",
     "evals/synthetic.py",

@@ -259,6 +259,37 @@ BLOCKED_RUN = textwrap.dedent("""
     assert strip.shape == (2, 128) and torch.equal(
         strip, dots.view(2, 2, 128).amax(1).float()), strip
 
+    # the default config's serving path (slice 13): the provider factory,
+    # the agent graph, the micro-batcher and try_build_stack
+    import threading
+    from rag_dpo_tpu_torch.agent import create_agent_pipeline
+    from rag_dpo_tpu_torch.bootstrap import try_build_stack
+    from rag_dpo_tpu_torch.providers import FakeLLMProvider, create_llm
+    from rag_dpo_tpu_torch.serving import MicroBatcher
+
+    assert type(create_llm("fake")) is FakeLLMProvider
+    agent = create_agent_pipeline(index, emb, create_llm("fake"),
+                                  bm25_stats=index.bm25_stats)
+    agent_resp = agent.query(dataset[2]["question"])
+    assert agent_resp.sources and agent_resp.error is None, agent_resp
+    assert "generate" in agent_resp.extras["node_trace"]
+    mb = MicroBatcher(lambda rows, key: (rows * 2,), max_batch=8,
+                      max_wait_ms=20.0)
+    outs = {}
+    workers = [threading.Thread(target=lambda i=i: outs.update(
+        {i: mb(np.full((1, 2), i))})) for i in range(4)]
+    [w.start() for w in workers]
+    [w.join() for w in workers]
+    assert all((outs[i][0] == 2 * i).all() for i in range(4)), outs
+    mb.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        assert try_build_stack(default_paths(tmp), device="cpu") is None
+        paths = default_paths(tmp)
+        index.save(paths.index_dir)
+        tried = try_build_stack(paths, llm=ExtractiveFakeLLM(),
+                                device="cpu")
+        assert tried.active() is tried.agent
+
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                   "transformers", "rag_dpo_tpu")]
