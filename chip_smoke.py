@@ -68,6 +68,22 @@ Phases, in order; any failure exits non-zero before the result lines:
    `CorpusIndexer` with ColBERT storage (Dc 1024, `colbert_len` the
    power-of-two bucket of the longest chunk), then saved as an index
    checkpoint;
+5b. ingest pipeline (run after phase 7, with phase 5's embedder once its
+   index is freed) — the same 16,919 chunks written as 1,829 French pages
+   (`evals/fake_site.py`: chunk i on page i % 1,829, one `<h2>` and `<p>`
+   a chunk) on a loopback site whose site map links them all; the port's
+   `Scraper` crawls it with its own `default_fetch`, then
+   `IngestPipeline(...).run()` runs the nine steps (filter ... tag) with
+   the fake LLM and the full-width BGE-M3 on the card: the reports must
+   list `STEP_ORDER`, index every chunk the chunker made, pass the
+   self-retrieval check, take the C++ runtime for BM25 (its calls
+   counted), launch K1 and K4 and run no twin; the native BM25 build is
+   timed beside the Python path on the same texts (the same impacts within
+   1e-6 relative, the same terms above each row's cut); then an
+   `IncrementalUpdater` pass in which 8 pages changed (a later date, new
+   text, 3 sections fewer or 2 more) and the rest answer 304: every new
+   chunk must retrieve itself top-1 and the live rows must be the old
+   ones less the purged stale rows plus the new ones;
 6. serve — `build_stack` reloads the checkpoint and answers 8 questions of
    the QA dataset through `pipeline.query` with a full-width cross-encoder
    reranking 40 candidates to 10; the kernels' launch counters must rise
@@ -112,7 +128,8 @@ the phase of the main path that runs it (serve for the ELL kernel, MaxSim
 serve for K7, train for the flash kernels, scale for K4, and for K5, K6,
 K10 and K11 their own paths: no store path calls them, as in the JAX
 package; K1, K3 and K4 also with the agent's and the concurrent phase's
-counts), its max abs error against the twin, its times, its bound
+counts, and with the ingest pipeline's and its update's), its max abs
+error against the twin, its times, its bound
 and the library call's time; the last line is `{"ok": true, "device":
 {...}}`. There is no CPU path.
 """
@@ -2092,7 +2109,7 @@ def run_path(seed: int, dev, dataset, chunks, colbert_len: int) -> dict:
         concurrent = serve_concurrent(stack, questions, dev)
         maxsim = serve_maxsim(stack, questions, colbert_len)
     return {"launches": launches, "plain_on_cuda": plain,
-            "agent": agent, "concurrent": concurrent,
+            "embedder": embedder, "agent": agent, "concurrent": concurrent,
             "flash_shapes": shapes,
             "ingest_chunks_per_s": N_CHUNKS / ingest_s,
             "colbert_store_gb": store_gb, "ingest_host_peak_gb": rss_gb,
@@ -2126,6 +2143,234 @@ def record_flash_shapes(pipeline, question) -> dict:
           == _kernels.LAUNCHES["flash_fwd"] - before,
           "the recorded attention calls are not K1's launches")
     return shapes
+
+
+# ------------------------------------------------------ ingest pipeline
+def changed_page(p: int, chunks: list[dict], grow: bool) -> str:
+    """Page `p` as it reads after an update: every section's text new, and
+    three sections fewer (so its stale chunks must go) or two more (the
+    next page's first two)."""
+    from rag_dpo_tpu_torch.evals.fake_site import page_sections, render_page
+
+    mine = chunks[p::N_DOCS]
+    sections = page_sections(mine + chunks[p + 1::N_DOCS][:2] if grow
+                             else mine[:-3])
+    return render_page(mine[0].get("title", ""), [
+        (h, f"Mise à jour du 2 juin 2026, fiche {p}, section {j + 1} : {t}")
+        for j, (h, t) in enumerate(sections)])
+
+
+def python_bm25(texts) -> tuple:
+    """The Python BM25 build the native runtime replaces: (stats, terms,
+    impacts)."""
+    from rag_dpo_tpu_torch.retrieval.bm25 import (
+        build_bm25_stats,
+        build_ell_corpus_tf,
+        impacts_from_tf,
+    )
+    from rag_dpo_tpu_torch.tokenize.french import tokenize_french_text
+
+    tokens = [tokenize_french_text(t) for t in texts]
+    stats = build_bm25_stats(tokens)
+    terms, tf, dl = build_ell_corpus_tf(tokens, stats, 32)
+    return stats, terms, impacts_from_tf(tf, dl, stats)
+
+
+def same_bm25(native_build, python_build) -> tuple:
+    """Checks the native and the Python BM25 build against each other and
+    returns (the largest relative gap of their impacts, the rows whose
+    kept terms differ at the cut). The native pass rounds impacts from
+    double (ROADMAP C-8) and numbers terms in first-seen order where the
+    Python path sorts them; a row with more distinct terms than the ELL
+    width keeps its best, the ties at the cut broken by term id, so the
+    two may keep different terms of the cut's impact. Each row must hold
+    the same impacts in order and the same terms above its cut."""
+    import numpy as np
+
+    (ns, nt, ni), (ps, pt, pi) = native_build, python_build
+    check(set(ns.vocab) == set(ps.vocab) and ns.n_docs == ps.n_docs,
+          "the native and the Python BM25 builds differ in vocabulary")
+    to_native = np.full(len(ps.vocab) + 1, -1, np.int64)
+    for term, pid in ps.vocab.items():
+        to_native[pid] = ns.vocab[term]
+    a = -np.sort(-np.where(nt >= 0, ni, 0), axis=1)
+    b = -np.sort(-np.where(pt >= 0, pi, 0), axis=1)
+    gap = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max())
+    full = (nt >= 0).all(1, keepdims=True)
+    cut = np.where(full, a[:, -1:] * (1 + 1e-6), -np.inf)
+
+    def above_cut(terms, impacts):
+        keep = (terms >= 0) & (impacts > cut)
+        return np.sort(np.where(keep, terms, np.iinfo(np.int64).max), 1)
+
+    same = above_cut(nt.astype(np.int64), ni) == above_cut(
+        np.where(pt >= 0, to_native[pt], -1), pi)
+    check(same.all(), "the native and the Python BM25 builds keep different "
+          "terms above a row's cut")
+    return gap, int((np.sort(np.where(nt >= 0, nt, -1), 1) != np.sort(
+        np.where(pt >= 0, to_native[pt], -1), 1)).any(1).sum())
+
+
+def run_ingest_pipeline(dev, chunks, embedder) -> dict:
+    """Phase 5b: the corpus as pages on a loopback site, crawled by the
+    port's scraper with its own `default_fetch`, through the nine steps
+    of `IngestPipeline` on the card, then an incremental update in which
+    8 pages changed and the rest answer 304."""
+    import torch
+
+    from rag_dpo_tpu_torch import native
+    from rag_dpo_tpu_torch.evals.fake_site import (
+        FakeSite,
+        page_path,
+        render_pages,
+    )
+    from rag_dpo_tpu_torch.ingest import STEP_ORDER
+    from rag_dpo_tpu_torch.ingest.pipeline import (
+        IngestPipeline,
+        PipelineContext,
+    )
+    from rag_dpo_tpu_torch.ingest.scraper import Scraper, ScraperConfig
+    from rag_dpo_tpu_torch.ingest.update import IncrementalUpdater
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.providers import FakeLLMProvider
+    from rag_dpo_tpu_torch.utils.paths import default_paths
+
+    check(native.is_available(),
+          f"the native runtime did not build: {native.build_error()}")
+    pages = render_pages(chunks, N_DOCS)
+    out: dict = {"n_pages": len(pages) - 1, "n_source_chunks": len(chunks)}
+    with tempfile.TemporaryDirectory(prefix="ragdpo_ingest_") as tmp, \
+            FakeSite(pages) as site:
+        paths = default_paths(tmp).ensure()
+        scraper = Scraper(paths.raw, ScraperConfig(scope_prefix=site.scope,
+                                                   delay_s=0.0))
+        t0 = time.perf_counter()
+        crawl = scraper.crawl([site.root])
+        out["crawl_s"] = time.perf_counter() - t0
+        check(crawl["n_fetched"] == len(pages) and not crawl["n_failed"],
+              f"the crawl fetched {crawl} of {len(pages)} pages")
+
+        ctx = PipelineContext(paths=paths, llm=FakeLLMProvider(),
+                              embedder=embedder)
+        calls = dict(native.CALLS)
+        _kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reports = IngestPipeline(ctx).run()
+        torch.cuda.synchronize()
+        out["pipeline_s"] = time.perf_counter() - t0
+        out["launches"] = dict(_kernels.LAUNCHES)
+        plain = dict(_kernels.PLAIN_ON_CUDA)
+        out["native_calls"] = {k: v - calls[k]
+                               for k, v in native.CALLS.items()}
+        check(list(reports) == STEP_ORDER,
+              f"the pipeline ran {list(reports)}")
+        n_chunks = reports["chunk"]["n_chunks"]
+        check(reports["index"]["n_indexed"] == n_chunks,
+              f"indexed {reports['index']['n_indexed']} of {n_chunks}")
+        check(reports["index"]["verification"]["self_retrieval_ok"],
+              reports["index"]["verification"])
+        check(out["native_calls"]["build_ell_corpus_native"] == 1,
+              f"the ELL build did not take the native runtime once: "
+              f"{out['native_calls']}")
+        for name in ("flash_fwd", "fused_topk"):
+            check(out["launches"][name] > 0,
+                  f"{name} never launched in the ingest pipeline")
+        check(not any(plain.values()),
+              f"a twin ran in the ingest pipeline: {plain}")
+        out["step_s"] = {k: r["seconds"] for k, r in reports.items()}
+        out["reports"] = {k: {f: v for f, v in r.items()
+                              if f not in ("seconds", "verification")}
+                          for k, r in reports.items()}
+        out["n_chunks"] = n_chunks
+        out["n_docs"] = reports["dedup"]["n_kept"]
+        out["index_chunks_per_s"] = n_chunks / reports["index"]["seconds"]
+        log(f"ingest pipeline: {out['n_pages']} pages + the site map "
+            f"crawled in {out['crawl_s']:.2f} s over loopback HTTP "
+            f"(default_fetch); filter kept {reports['filter']['n_kept']}, "
+            f"dropped {reports['filter']['n_dropped']}; {out['n_docs']} "
+            f"docs after dedup ({reports['dedup']['n_duplicates']} "
+            f"duplicates); {n_chunks} chunks of {len(chunks)} source chunks; "
+            f"cleanup purged {reports['cleanup']['n_purged']}")
+        log(f"ingest pipeline: nine steps in {out['pipeline_s']:.2f} s: "
+            + ", ".join(f"{k} {s:.2f}" for k, s in out["step_s"].items())
+            + f" s; index step {out['index_chunks_per_s']:.1f} chunks/s; "
+            f"launches K1 {out['launches']['flash_fwd']}, K4 "
+            f"{out['launches']['fused_topk']}, no twin; native calls "
+            f"{out['native_calls']}")
+
+        # the native BM25 build beside the Python path, on the same texts
+        texts = [ctx.index.meta.row(i)["text"]
+                 for i in range(ctx.index.n_rows)]
+        t0 = time.perf_counter()
+        nat = native.build_ell_corpus_native(texts, ell_width=32)
+        out["bm25_native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = python_bm25(texts)
+        out["bm25_python_s"] = time.perf_counter() - t0
+        out["bm25_max_rel_gap"], out["bm25_rows_cut_differently"] = \
+            same_bm25(nat, py)
+        check(out["bm25_max_rel_gap"] <= 1e-6,
+              f"native and Python impacts differ by "
+              f"{out['bm25_max_rel_gap']}")
+        log(f"BM25 of {len(texts)} texts: native {out['bm25_native_s']:.3f} "
+            f"s, Python {out['bm25_python_s']:.3f} s; impacts within "
+            f"{out['bm25_max_rel_gap']:.2e} relative, the same terms above "
+            f"each row's cut; {out['bm25_rows_cut_differently']} rows keep "
+            f"other terms of the cut's impact")
+
+        # the incremental update: 8 pages changed, the rest answer 304
+        picks = [k * N_DOCS // 8 for k in range(8)]
+        live = {cid for i, cid in enumerate(ctx.index.ids)
+                if ctx.index._alive[i]}
+        for k, p in enumerate(picks):
+            site.set_page(page_path(p), changed_page(p, chunks, k % 2 == 1),
+                          "Tue, 02 Jun 2026 08:00:00 GMT")
+        _kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = IncrementalUpdater(scraper, ctx).update()
+        torch.cuda.synchronize()
+        out["update_s"] = time.perf_counter() - t0
+        out["update_launches"] = dict(_kernels.LAUNCHES)
+        check(not any(_kernels.PLAIN_ON_CUDA.values()),
+              f"a twin ran in the update: {_kernels.PLAIN_ON_CUDA}")
+        check(result["n_changed"] == 8 and result["n_failed"] == 0
+              and result["n_unchanged"] == len(pages) - 8,
+              f"the update saw {result}")
+        keys = {f"fr_doc_{p}" for p in picks}
+        fresh = [c for c in ctx.chunks if c["doc_key"] in keys]
+        new_ids = {c["chunk_id"] for c in fresh}
+        want = len(live) - result["n_stale_purged"] + len(new_ids - live)
+        check(len(ctx.index) == want,
+              f"{len(ctx.index)} live rows after the update, not {want}")
+        q = embedder.embed([c["text"] for c in fresh])["dense"]
+        scores, rows = ctx.index.search_dense(q, 2)
+        missed = [(c["chunk_id"], ctx.index.ids[r[0]], float(sc[0]),
+                   float(sc[1])) for c, r, sc in zip(fresh, rows, scores)
+                  if ctx.index.ids[r[0]] != c["chunk_id"]]
+        out["update_top1_margin_min"] = float((scores[:, 0]
+                                               - scores[:, 1]).min())
+        check(not missed, f"{len(missed)} of a changed page's chunks do not "
+              f"retrieve themselves top-1 (wanted, got, scores): "
+              f"{missed[:4]}")
+        out["update"] = {k: v for k, v in result.items() if k != "changed"}
+        out["n_update_chunks"] = len(fresh)
+        out["host_peak_gb"] = (resource.getrusage(resource.RUSAGE_SELF)
+                               .ru_maxrss / 1e6)
+        check(out["host_peak_gb"] <= 48, f"host peak {out['host_peak_gb']} GB")
+        log(f"ingest update: 8 pages changed ({result['n_chunks_updated']} "
+            f"chunks, {result['n_stale_purged']} stale purged, "
+            f"{len(new_ids - live)} new), {result['n_unchanged']} answered "
+            f"304, in {out['update_s']:.2f} s; {len(ctx.index)} live rows; "
+            f"each new chunk retrieves itself top-1; launches K1 "
+            f"{out['update_launches']['flash_fwd']}, K4 "
+            f"{out['update_launches']['fused_topk']}; site answers "
+            f"{site.counts}; host peak resident memory {out['host_peak_gb']:.1f} "
+            f"GB")
+        out["site_counts"] = dict(site.counts)
+        del ctx
+    return out
 
 
 def timed_queries(pipeline, questions) -> list[float]:
@@ -2789,7 +3034,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     path = run_path(args.seed, dev, dataset, chunks, colbert_len)
-    del chunks
+    embedder = path.pop("embedder")
     for name in SERVE_KERNELS:
         check(path["launches"][name] > 0, f"{name} never launched")
         check(path["plain_on_cuda"][name] == 0, f"{name} ran plain")
@@ -2811,6 +3056,10 @@ def main() -> int:
           f"{path['maxsim']['plain_on_cuda']}")
     gc.collect()  # the serve phase's models and index
     torch.cuda.empty_cache()
+    ingest = run_ingest_pipeline(dev, chunks, embedder)
+    del chunks, embedder
+    gc.collect()
+    torch.cuda.empty_cache()
     flash.update(time_serve_flash(dev, gen, path.pop("flash_shapes")))
     hermetic = run_hermetic(dev)
     gc.collect()
@@ -2828,6 +3077,11 @@ def main() -> int:
                "concurrent_batched_launches":
                    path["concurrent"]["on"]["launches"][name]}
         for name in SERVE_KERNELS}
+    # the ingest pipeline's (phase 5b) and its update's launches of K1, K4
+    ingest_launches = {
+        name: {"ingest_pipeline_launches": ingest["launches"][name],
+               "ingest_update_launches": ingest["update_launches"][name]}
+        for name in ("flash_fwd", "fused_topk")}
     bwd_src = "rag_dpo_tpu_torch/csrc/flash_bwd.cu"
     bwd_mma = ("mma.sync m16n8k8 tf32 (f32: 3xTF32) + m16n8k16 bf16 (bf16 "
                "inputs; P and dS as hi + lo)")
@@ -2840,6 +3094,7 @@ def main() -> int:
          "launches": train["launches"]["flash_fwd"],
          "serve_launches": path["launches"]["flash_fwd"],
          **serve_phase_launches["flash_fwd"],
+         **ingest_launches["flash_fwd"],
          **flash},
         {"name": "ell_topk", "route": "cuda",
          "source": "rag_dpo_tpu_torch/csrc/ell_topk.cu",
@@ -2876,6 +3131,7 @@ def main() -> int:
              path["maxsim"]["launches"]["fused_topk"],
          "hermetic_launches": hermetic["none"]["launches"]["fused_topk"],
          **serve_phase_launches["fused_topk"],
+         **ingest_launches["fused_topk"],
          **k4},
         {"name": "pooled_max", "route": "cuda",
          "source": "rag_dpo_tpu_torch/csrc/pooled.cu",
@@ -2919,6 +3175,9 @@ def main() -> int:
                     **{f"agent_{k}": v for k, v in path["agent"].items()
                        if k.startswith("query_")},
                     "concurrent_warm_s": path["concurrent"]["warm_s"],
+                    **{f"ingest_pipeline_{k}": v for k, v in ingest.items()
+                       if k not in ("launches", "update_launches",
+                                    "reports")},
                     **{f"concurrent_{label}_{k}": v
                        for label in ("off", "on")
                        for k, v in path["concurrent"][label].items()

@@ -1,11 +1,9 @@
 """Corpus indexer: chunks → device index (TPU batch encode).
 
 Port of `rag_dpo_tpu/ingest/indexer.py` on one torch device: the index
-lives on `device` (default: the embedder's). BM25 stats and ELL arrays
-always come from the Python path (`tokenize_french_text` +
-`build_bm25_stats` + `build_ell_corpus_tf`); the JAX package's C++
-ingestion runtime, which its tests hold to bit-level parity with that
-path, is not carried over.
+lives on `device` (default: the embedder's). A fresh build takes BM25 stats
+and ELL arrays from the C++ ingestion runtime (`native`) wherever the JAX
+indexer does, else from the Python path.
 
 Role parity with `src/processing/create_chromadb_index.py`: modes
 reset/append/update (:70-130), `heading\\n\\ntext` embedded together
@@ -152,12 +150,13 @@ class CorpusIndexer:
                       width: int | None = None):
         """Tokenize + BM25 stats + ELL arrays for `texts`.
 
-        Fresh build (existing=None): stats come from the new corpus alone.
-        Incremental (existing index given):
+        Fresh build (existing=None): stats come from the new corpus alone
+        (C++ runtime when available). Incremental (existing index given):
         the persisted stats are *extended* — same term-id space, df/avgdl
         updated over the full corpus — and the new rows' arrays are
         computed under the merged stats. Returns
         (stats, terms, impacts, tf, dl)."""
+        from .. import native
         from ..retrieval.bm25 import (
             extend_bm25_stats,
             impacts_from_tf,
@@ -205,6 +204,13 @@ class CorpusIndexer:
             terms, tf, dl = build_ell_corpus_tf(token_lists, stats, width)
             return stats, terms, impacts_from_tf(tf, dl, stats), tf, dl
 
+        if native.is_available():
+            # C++ ingestion runtime: tokenize + BM25 stats + ELL arrays
+            # in one native pass (tests assert bit-level score parity)
+            stats, terms, impacts, tf, dl = native.build_ell_corpus_native(
+                texts, ell_width=width, return_tf=True
+            )
+            return stats, terms, impacts, tf, dl
         token_lists = [tokenize_french_text(t) for t in texts]
         stats = build_bm25_stats(token_lists)
         terms, tf, dl = build_ell_corpus_tf(token_lists, stats, width)

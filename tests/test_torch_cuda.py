@@ -1359,3 +1359,117 @@ def test_device_refine_store_on_the_card_matches_the_cpu(dev,
     for (cs, ci), (gs, gi) in zip(out["cpu"], out[str(dev)]):
         np.testing.assert_array_equal(gi, ci)
         assert np.abs(gs - cs).max() <= 1e-6
+
+
+# tests/test_ingest_e2e.py's four pages (that module imports jax; a test of
+# tests/test_torch_ingest.py holds this copy equal to them)
+E2E_PAGES = {
+    "https://site.test/fr/": """
+      <html><head><title>Accueil</title></head><body>
+      <div class="region-content">
+      <p>Portail de la protection des données RGPD.</p>
+      <a href="/fr/violation">Violations</a>
+      <a href="/fr/aipd">AIPD</a>
+      <a href="/fr/presse/com1">Presse</a>
+      </div></body></html>""",
+    "https://site.test/fr/violation": """
+      <html><head><title>Notifier une violation</title></head><body>
+      <div class="region-content">
+      <h2>Notification à la CNIL</h2>
+      <p>En cas de violation de données personnelles, le responsable de
+      traitement notifie la CNIL dans les 72 heures conformément à
+      l'article 33 du RGPD. Le registre des traitements doit être tenu à
+      jour et le sous-traitant informe sans délai le responsable.</p>
+      <h2>Communication aux personnes</h2>
+      <p>Si la violation engendre un risque élevé pour les droits des
+      personnes, la communication aux personnes concernées est requise par
+      l'article 34. Le consentement ne couvre pas cette obligation de
+      sécurité des données.</p>
+      </div></body></html>""",
+    "https://site.test/fr/aipd": """
+      <html><head><title>Réaliser une AIPD</title></head><body>
+      <div class="region-content">
+      <h2>Champ d'application</h2>
+      <p>L'analyse d'impact relative à la protection des données est
+      obligatoire pour tout traitement susceptible d'engendrer un risque
+      élevé. La CNIL publie la liste des traitements concernés et le
+      registre mentionne chaque analyse conduite sur les données
+      personnelles.</p>
+      <h2>Étapes</h2>
+      <p>Étape 1 : décrire le traitement de données. Étape 2 : évaluer la
+      nécessité et la proportionnalité du traitement. Étape 3 : gérer les
+      risques pour la sécurité des données personnelles.</p>
+      </div></body></html>""",
+    "https://site.test/fr/presse/com1": """
+      <html><head><title>Communiqué</title></head><body>
+      <div class="region-content"><p>Communiqué de presse.</p>
+      </div></body></html>""",
+}
+
+
+def test_ingest_pipeline_on_the_card_matches_the_cpu(dev, tmp_path):
+    """The four pages through the nine steps on the card and on the CPU,
+    one tiny encoder's weights on both: the same reports but for seconds,
+    the same index ids and BM25 arrays, dense rows within 1e-3; K1 (every
+    encode) and K4 (the self-check's search) launch on the card, no twin."""
+    from rag_dpo_tpu_torch.ingest.pipeline import (
+        IngestPipeline,
+        PipelineContext,
+    )
+    from rag_dpo_tpu_torch.ingest.scraper import (
+        FetchResult,
+        Scraper,
+        ScraperConfig,
+    )
+    from rag_dpo_tpu_torch.models import BgeM3Config, EncoderConfig
+    from rag_dpo_tpu_torch.models.convert import state_dict_to_flax
+    from rag_dpo_tpu_torch.providers import (
+        Embedder,
+        EmbedderConfig,
+        FakeLLMProvider,
+    )
+    from rag_dpo_tpu_torch.utils.paths import default_paths
+
+    def fetch(url, if_modified_since="", **kw):
+        html = E2E_PAGES.get(url)
+        if html is None:
+            return FetchResult(url=url, status=404)
+        return FetchResult(url=url, status=200, content=html.encode(),
+                           content_type="text/html",
+                           last_modified="Mon, 01 Jan 2026 00:00:00 GMT")
+
+    config = EmbedderConfig(model=BgeM3Config(
+        encoder=EncoderConfig.tiny(), colbert_dim=32), batch_size=8)
+    cpu = Embedder(config, device="cpu")
+    params = {"params": state_dict_to_flax(cpu.load())}
+    runs = {}
+    for device in ("cpu", dev):
+        paths = default_paths(tmp_path / str(device)).ensure()
+        Scraper(paths.raw, ScraperConfig(scope_prefix="https://site.test/fr",
+                                         delay_s=0.0),
+                fetch=fetch).crawl(["https://site.test/fr/"])
+        emb = cpu if device == "cpu" else Embedder(config, params=params,
+                                                   device=device)
+        ctx = PipelineContext(paths=paths, llm=FakeLLMProvider(),
+                              embedder=emb)
+        _kernels.reset_counts()
+        reports = IngestPipeline(ctx).run()
+        runs[str(device)] = (reports, ctx.index, dict(_kernels.LAUNCHES),
+                             dict(_kernels.PLAIN_ON_CUDA))
+    (creports, cindex, _, _), (greports, gindex, launches, plain) = \
+        runs["cpu"], runs[str(dev)]
+
+    def without_seconds(r):
+        return {k: {f: v for f, v in s.items()
+                    if f not in ("seconds", "build_seconds")}
+                for k, s in r.items()}
+
+    assert without_seconds(greports) == without_seconds(creports)
+    assert greports["index"]["verification"]["self_retrieval_ok"]
+    assert gindex.ids == cindex.ids and str(gindex.device).startswith("cuda")
+    np.testing.assert_array_equal(gindex._terms, cindex._terms)
+    np.testing.assert_array_equal(gindex._impacts, cindex._impacts)
+    np.testing.assert_allclose(gindex._dense.astype(np.float32),
+                               cindex._dense.astype(np.float32), atol=1e-3)
+    assert launches["flash_fwd"] > 0 and launches["fused_topk"] > 0
+    assert not any(plain.values()), plain

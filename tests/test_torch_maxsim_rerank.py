@@ -25,6 +25,7 @@ from rag_dpo_tpu.providers import Embedder as JEmbedder
 from rag_dpo_tpu.providers import EmbedderConfig as JEmbedderConfig
 from rag_dpo_tpu.retrieval import HybridRetriever as JHybridRetriever
 from rag_dpo_tpu.retrieval.reranker import MaxSimReranker as JMaxSimReranker
+from rag_dpo_tpu_torch import native as tnative
 from rag_dpo_tpu_torch.evals.train_encoder import QA_DATASET
 from rag_dpo_tpu_torch.ingest import CorpusIndexer
 from rag_dpo_tpu_torch.models import BgeM3Config, EncoderConfig
@@ -61,8 +62,9 @@ def test_maxsim_rerank_top10_matches_jax_on_all_48_questions():
     # BM25 impacts from the Python path on both sides (ROADMAP C-8)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(native, "is_available", lambda: False)
+        mp.setattr(tnative, "is_available", lambda: False)
         jindex, jstats, _ = JCorpusIndexer(jemb, **kw).build(chunks)
-    index, stats, _ = CorpusIndexer(emb, **kw).build(chunks)
+        index, stats, _ = CorpusIndexer(emb, **kw).build(chunks)
     jret = JHybridRetriever(jindex, jemb, bm25_stats=jstats)
     ret = HybridRetriever(index, emb, bm25_stats=stats)
     jrr, rr = JMaxSimReranker(jindex, jemb), MaxSimReranker(index, emb)

@@ -1,7 +1,8 @@
 """The postings engine of the port against the JAX package, on the CPU.
 
-`PostingsIndex.build` is the reference's numpy path (its C++ inversion is
-pinned off on the JAX side, as for the BM25 impacts, ROADMAP C-8).
+`PostingsIndex.build` is the reference's numpy path (the C++ inversion is
+pinned off on both sides, as for the BM25 impacts, ROADMAP C-8;
+`tests/test_torch_native.py` holds the port's to it).
 `postings_candidates_topk` must return the same ids and scores. The port
 adds each candidate's contributions in float64 and rounds once (the same
 bits on every device); XLA adds them in f32 in an order that depends on
@@ -33,6 +34,7 @@ from rag_dpo_tpu.retrieval.bm25 import (
     impacts_from_tf,
     tokenize_corpus,
 )
+from rag_dpo_tpu_torch import native as tnative
 from rag_dpo_tpu_torch.ops.postings import (
     PostingsIndex,
     postings_candidates_topk,
@@ -98,7 +100,9 @@ def _random_case(seed):
 
 
 def _jax_build(case, cap, monkeypatch):
+    """JAX's build; both packages on the numpy path from here on."""
     monkeypatch.setattr(native, "is_available", lambda: False)
+    monkeypatch.setattr(tnative, "is_available", lambda: False)
     return JPostingsIndex.build(case["terms"], case["impacts"],
                                 vocab_size=case["vocab"], cap=cap)
 

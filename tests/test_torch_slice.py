@@ -1,8 +1,9 @@
 """Slice 1 end to end: the port against the JAX package on the hermetic
 synthetic corpus, and the port alone with jax refused at import (the query
 path, slice 2's train step, checkpoint and npz export, slice 3's MaxSim
-rerank and hermetic replay module, and slice 4's int8 and postings
-searches).
+rerank and hermetic replay module, slice 4's int8 and postings searches,
+and slice 14's corpus-build modules, with bs4 and lxml refused too, as the
+card's machine has neither).
 
 Both stacks use the same exported Flax parameters (tiny encoder in
 reference-attention mode and ELL width 48, as `evals/hermetic.py` builds
@@ -37,6 +38,7 @@ from rag_dpo_tpu.retrieval import HybridRetriever as JHybridRetriever
 from rag_dpo_tpu.retrieval.reranker import (
     CrossEncoderReranker as JCrossEncoderReranker,
 )
+from rag_dpo_tpu_torch import native as tnative
 from rag_dpo_tpu_torch.evals.synthetic import ExtractiveFakeLLM
 from rag_dpo_tpu_torch.ingest import CorpusIndexer
 from rag_dpo_tpu_torch.models import BgeM3Config, EncoderConfig
@@ -76,13 +78,15 @@ def stacks(request):
     emb = Embedder(EmbedderConfig(model=BgeM3Config(
         encoder=EncoderConfig.tiny(use_flash_attention=False),
         colbert_dim=32)), params=_numpy_tree(jemb.load()), device="cpu")
-    # the port builds BM25 impacts on the Python path; the JAX package's
-    # C++ runtime rounds them from double and differs in the last ulp on
-    # some rows (ROADMAP C-8), so the JAX side takes the Python path too
+    # BM25 impacts from the Python path on both sides: the C++ runtime
+    # rounds them from double and differs in the last ulp on some rows
+    # (ROADMAP C-8; tests/test_torch_native.py holds the two packages'
+    # native builds to each other)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(native, "is_available", lambda: False)
+        mp.setattr(tnative, "is_available", lambda: False)
         jindex, jstats, _ = JCorpusIndexer(jemb, ell_width=48).build(chunks)
-    index, stats, _ = CorpusIndexer(emb, ell_width=48).build(chunks)
+        index, stats, _ = CorpusIndexer(emb, ell_width=48).build(chunks)
     return dict(kind=request.param, dataset=dataset, jemb=jemb, emb=emb,
                 jindex=jindex, jstats=jstats, index=index, stats=stats)
 
@@ -147,7 +151,7 @@ BLOCKED_RUN = textwrap.dedent("""
         def find_spec(self, name, path, target=None):
             top = name.split(".")[0]
             if top in ("jax", "jaxlib", "flax", "optax", "orbax",
-                       "transformers", "rag_dpo_tpu"):
+                       "transformers", "rag_dpo_tpu", "bs4", "lxml"):
                 raise ImportError(f"refused: {name}")
             return None
 
@@ -290,9 +294,32 @@ BLOCKED_RUN = textwrap.dedent("""
                                 device="cpu")
         assert tried.active() is tried.agent
 
+    # the corpus build (slice 14): every ingest module, the rebuild CLI's
+    # plan, an HTML page through the parser without bs4 or lxml, and the
+    # C++ runtime's bindings
+    import contextlib, io
+    import rag_dpo_tpu_torch.ingest as ingest
+    from rag_dpo_tpu_torch import native
+    from rag_dpo_tpu_torch.ingest import (  # noqa: F401
+        enterprise, images, rebuild, scraper, update, update_cli)
+
+    plan = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(plan):
+        assert rebuild.main(["--check", "--root", tmp, "--llm-mode",
+                             "fake", "--device", "cpu"]) == 0
+    assert json.loads(plan.getvalue())["would_run"] == ingest.STEP_ORDER
+    sections = ingest.parse_document(
+        "<html><body><div class='region-content'><h2>AIPD</h2><p>Une "
+        "analyse d'impact.</p></div></body></html>".encode(), "html")
+    assert [(x.heading, x.text) for x in sections] == [
+        ("AIPD", "Une analyse d'impact.")], sections
+    assert isinstance(native.is_available(), bool)
+
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
-                                  "transformers", "rag_dpo_tpu")]
+                                  "transformers", "rag_dpo_tpu", "bs4",
+                                  "lxml")]
     assert not bad, bad
     print("OK", len(resp.sources), len(cb_resp.sources))
 """)

@@ -31,6 +31,7 @@ from rag_dpo_tpu.retrieval.bm25 import (
     impacts_from_tf,
     tokenize_corpus,
 )
+from rag_dpo_tpu_torch import native as tnative
 from rag_dpo_tpu_torch.index import DeviceIndex, IndexConfig
 from test_torch_postings import assert_same_up_to_near_ties
 
@@ -218,6 +219,7 @@ def bm25_pair():
 def test_postings_branches_match_jax(bm25_pair, monkeypatch, threshold, n_q,
                                      where):
     monkeypatch.setattr(native, "is_available", lambda: False)
+    monkeypatch.setattr(tnative, "is_available", lambda: False)
     pairs, qt, qw = bm25_pair
     jidx, idx = pairs[threshold]
     js, ji = jidx.search_sparse(qt[:n_q], qw[:n_q], 40, where=where)
