@@ -196,6 +196,26 @@ Phases, in order; any failure exits non-zero before the result lines:
    beside its bound, each streamed request's time to first token split
    (compose, hand-off, slot wait, admitting step, delivery) and its
    tokens/s, and the phase's peak device memory;
+6h. serve, mesh (after 6g, the pool freed; `parallel/`) — (a) NCCL at
+   world size 1 (`initialize_multihost` on a free loopback port,
+   `create_mesh(MeshSpec(shard=1))`): over the serve phase's 16,919 rows,
+   `DeviceIndex(mesh=)`'s dense bf16 (K4), ELL, int8 and `device_refine`
+   searches against the unsharded store on the card (ids equal, the ELL
+   arm up to ties; scores within 1e-5; each timed beside it),
+   `Embedder(mesh=)` against the plain embedder (1e-5), the encoder's
+   `attention_impl="ring"` under `context_parallel` against "flash" at
+   BGE-M3 widths (1e-5), and the Mistral-Nemo-12B (int8, random init from
+   `--seed`) through `shard_params(decoder_flax_tree(model), mesh)` at
+   model=1: 8 greedy tokens equal to the unsharded generator's; K1 and K4
+   must launch, no twin; (b) 4 logical shards on the one card: the
+   collectives' local halves (K4 on each row slice) and the merge against
+   one K4 call; ring attention at [2, 16, 8192, 64] (lengths 6,000 and 0),
+   K/V in 4 blocks of 2,048, per-block K1 + the lse merge against one K1
+   call (f32 1e-5, bf16 2e-2), the length-0 row at JAX's value (the mean
+   of the values), both timed; (c) the full-width BGE-M3 query vectors and
+   the cross-encoder's scores of 40 candidates in bf16 against f32 within
+   2e-2, their device times, and the query p50 of a stack with both
+   encoders in bf16 beside f32's;
 8. hermetic — the port's hermetic replay with the committed trained
    encoder must pass the gate against the committed trained records; then
    its MaxSim arm, where K3, K4 and K7 must launch and no twin may run. (The
@@ -213,7 +233,8 @@ the phase of the main path that runs it (serve for the ELL kernel, MaxSim
 serve for K7, train for the flash kernels, scale for K4, and for K5, K6,
 K10 and K11 their own paths: no store path calls them, as in the JAX
 package; K1, K3 and K4 also with the agent's, the concurrent phase's,
-the HTTP phase's, the continuous pool's and the vision phase's counts, and
+the HTTP phase's, the continuous pool's, the vision phase's and the mesh
+phase's counts, and
 K1 and K4 with the
 ingest pipeline's and its update's), its max abs
 error against the twin, its times, its bound
@@ -261,6 +282,8 @@ FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 MAXSIM_TOL = dict(rtol=1e-5, atol=1e-4)
 SERVE_KERNELS = ("flash_fwd", "ell_topk", "fused_topk")
 MAXSIM_KERNELS = ("flash_fwd", "ell_topk", "fused_topk", "maxsim")
+# phase 6h (a): the mesh's entry points run K1 (encoders) and K4 (dense)
+MESH_KERNELS = ("flash_fwd", "fused_topk")
 # the scale phase's: K4 (the recall gate's f32 oracle); its int8 arm's
 # product is `torch._int_mm`, as JAX leaves it to XLA, and its sparse arm
 # the postings engine (plain)
@@ -2240,8 +2263,9 @@ def run_path(seed: int, dev, dataset, chunks, colbert_len: int) -> dict:
                                       pathlib.Path(tmp), generate["decode"])
         gc.collect()  # the 12B pool
         torch.cuda.empty_cache()
+        mesh = serve_mesh(stack, questions, dev, seed)
     return {"launches": launches, "plain_on_cuda": plain,
-            "generate": generate, "continuous": continuous,
+            "generate": generate, "continuous": continuous, "mesh": mesh,
             "embedder": embedder, "agent": agent, "concurrent": concurrent,
             "http": served,
             "flash_shapes": shapes,
@@ -2250,6 +2274,302 @@ def run_path(seed: int, dev, dataset, chunks, colbert_len: int) -> dict:
             "query_p50_ms": float(np.median(times) * 1e3),
             "query_max_ms": float(max(times) * 1e3),
             "query_device_busy_share": busy, "maxsim": maxsim}
+
+
+MESH_SHARDS = 4          # phase 6h (b): logical shards on the one card
+MESH_K = 40
+# phase 6h (b): the ring's shape, one batch row of length 6,000 and one of 0
+RING_SHAPE = (2, 16, 8192, 64)
+RING_LENGTHS = (6000, 0)
+MESH_NEW_TOKENS = 8
+BF16_TOL = 2e-2          # phase 6h (c): bf16 encoders against f32 (C-5)
+
+
+def mesh_index(index, mesh, **cfg):
+    """A `DeviceIndex` over the serve phase's host rows (the arrays shared,
+    not copied; no ColBERT rows), its config with `cfg` over it,
+    row-sharded over `mesh` (None: the card alone)."""
+    from rag_dpo_tpu_torch.index import DeviceIndex
+
+    config = dataclasses.replace(index.config, colbert_dim=0, colbert_len=0,
+                                 **cfg)
+    out = DeviceIndex(config, device=index.device if mesh is None else None,
+                      mesh=mesh)
+    for name in ("ids", "_id_pos", "meta", "_dense", "_terms", "_impacts",
+                 "_tf", "_dl", "_alive", "bm25_stats"):
+        setattr(out, name, getattr(index, name))
+    return out
+
+
+def same_ranking(got, want, what: str, tol: float = NEAR_TIE) -> float:
+    """Two (scores, ids) top-k lists equal up to ties: scores rank for
+    rank within `tol`, and in each row the same ids above the last score's
+    tie group (ids within a group of equal scores may come in any order,
+    and the group at the cut may be cut elsewhere); → the largest score
+    difference."""
+    import numpy as np
+
+    def host(x):
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+    (gs, gi), (ws, wi) = ((host(s), host(i)) for s, i in (got, want))
+    err = float(np.abs(gs - ws).max())
+    check(err <= tol, f"{what}: scores differ by {err}")
+    for row in range(ws.shape[0]):
+        cut = ws[row, -1] + tol
+        check(set(gi[row][gs[row] > cut]) == set(wi[row][ws[row] > cut]),
+              f"{what}: row {row} ids differ away from a tie")
+    return err
+
+
+def serve_mesh(stack, questions, dev, seed: int) -> dict:
+    """Phase 6h: the mesh (`parallel/`, after 6g, its pool freed). (a) NCCL
+    at world size 1: `initialize_multihost` on a free loopback port and
+    `create_mesh(MeshSpec(shard=1))`; over the serve phase's rows, the
+    row-sharded store's dense bf16, ELL, int8 and `device_refine` searches
+    against the unsharded store on the card (ids equal, scores within
+    1e-5, each timed beside it), `Embedder(mesh=)` against the plain
+    embedder (1e-5), the encoder's `attention_impl="ring"` at BGE-M3
+    widths under `context_parallel` against "flash" (1e-5), and the
+    Mistral-Nemo-12B (int8, random init from `--seed`) through
+    `shard_params(decoder_flax_tree(model), mesh)` at model=1: 8 greedy
+    tokens equal to the unsharded generator's; K1 and K4 must launch there
+    and no twin may run. (b) MESH_SHARDS logical shards on the one card:
+    the collectives' local halves (K4 with the penalty on each row slice)
+    and the merge against one K4 call over all rows; the ring at
+    RING_SHAPE (one row of length 6,000, one of 0), K/V in MESH_SHARDS
+    blocks of 2,048: per-block K1 + the lse merge against one K1 call (f32
+    1e-5, bf16 2e-2), the length-0 row at JAX's value (the mean of the
+    values), both timed. (c) bf16: the full-width BGE-M3 query encode and
+    the cross-encoder's scores of one question's 40 candidates against
+    f32 within BF16_TOL, their device times, and the query p50 through a
+    stack with both encoders in bf16 beside f32's."""
+    import numpy as np
+    import torch
+    import torch.distributed
+
+    from rag_dpo_tpu_torch.bootstrap import build_stack
+    from rag_dpo_tpu_torch.evals.synthetic import ExtractiveFakeLLM
+    from rag_dpo_tpu_torch.models import BgeM3Model, CrossEncoderModel
+    from rag_dpo_tpu_torch.models.decoder import (
+        DecoderConfig,
+        decoder_flax_tree,
+    )
+    from rag_dpo_tpu_torch.models.encoder import TransformerEncoder
+    from rag_dpo_tpu_torch.models.generate import (
+        SamplingConfig,
+        TextGenerator,
+    )
+    from rag_dpo_tpu_torch.models.sharding import shard_params
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.ops.flash_attention import flash_attention
+    from rag_dpo_tpu_torch.ops.ring_attention import ring_attention_blocks
+    from rag_dpo_tpu_torch.ops.topk import fused_topk
+    from rag_dpo_tpu_torch.parallel import (
+        MeshSpec,
+        context_parallel,
+        create_mesh,
+        initialize_multihost,
+    )
+    from rag_dpo_tpu_torch.parallel.collectives import local_topk, merge_topk
+    from rag_dpo_tpu_torch.parallel.mesh import free_port
+    from rag_dpo_tpu_torch.providers import Embedder
+    from rag_dpo_tpu_torch.retrieval.reranker import CrossEncoderReranker
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0)
+    mesh = create_mesh(MeshSpec(shard=1))
+    check(mesh.device_type == "cuda", f"mesh on {mesh.device_type}")
+    index, emb = stack.index, stack.embedder
+    qs = questions[:8]
+    q_dense = emb.embed_queries(qs)
+    pairs = [index.bm25_stats.query_terms(q, 16) for q in qs]
+    qt, qw = np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+    # (a) the entry points over NCCL at world size 1
+    _kernels.reset_counts()
+    arms = {}
+    for label, cfg in (("bf16", {}), ("int8", dict(quantize_int8=True)),
+                       ("int8_refine", dict(quantize_int8=True,
+                                            device_refine=True))):
+        sharded, base = mesh_index(index, mesh, **cfg), \
+            mesh_index(index, None, **cfg)
+        searches = [("dense", lambda i: i.search_dense(q_dense, MESH_K))]
+        if label == "bf16":
+            searches.append(("sparse", lambda i: i.search_sparse(
+                qt, qw, MESH_K)))
+        for name, fn in searches:
+            got, want = fn(sharded), fn(base)
+            if name == "sparse":
+                # the sharded ELL arm is a stable top-k (JAX's lax.top_k),
+                # the unsharded K3 keeps C-1's order among equal scores
+                err = same_ranking(got, want, f"6h {label} {name}")
+            else:
+                check(np.array_equal(got[1], want[1]),
+                      f"6h {label} {name}: sharded ids differ")
+                err = float(np.abs(got[0] - want[0]).max())
+                check(err <= NEAR_TIE,
+                      f"6h {label} {name}: scores differ by {err}")
+            arms[f"{label}_{name}"] = {
+                "max_abs_err": err,
+                "sharded_ms": cuda_ms(lambda: fn(sharded), iters=5),
+                "unsharded_ms": cuda_ms(lambda: fn(base), iters=5)}
+        del sharded, base
+    dp = Embedder(emb.config, tokenizer=emb.tokenizer, mesh=mesh)
+    dp.model = emb.model
+    texts = [stack.pipeline.retriever.chunk_text(r) for r in range(16)]
+    dp_err = float(np.abs(dp.embed(texts)["dense"]
+                          - emb.embed(texts)["dense"]).max())
+    check(dp_err <= 1e-5, f"6h DP embed differs by {dp_err}")
+    enc = emb.model.encoder
+    ring_enc = TransformerEncoder(dataclasses.replace(
+        enc.config, attention_impl="ring")).to(dev).eval()
+    ring_enc.load_state_dict(enc.state_dict())
+    tok = emb.tokenizer.encode_batch(qs, 512)
+    seq = int(tok.lengths.max())
+    ids = torch.from_numpy(tok.input_ids[:, :seq].astype(np.int64)).to(dev)
+    lens = torch.from_numpy(tok.lengths.astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        flash_h = enc(ids, lens)
+        with context_parallel(mesh):
+            ring_h = ring_enc(ids, lens)
+    ring_err = float((ring_h - flash_h).abs().max())
+    check(ring_err <= 1e-5, f"6h ring encoder differs by {ring_err}")
+    del ring_enc, flash_h, ring_h
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg12 = dataclasses.replace(DecoderConfig.mistral_nemo_12b(),
+                                quantize_weights=True, tie_embeddings=True)
+    gen = TextGenerator(cfg12, rng_seed=seed, device=dev)
+    t0 = time.perf_counter()
+    tp = TextGenerator(cfg12, params=shard_params(
+        decoder_flax_tree(gen.load()), mesh), device=dev)
+    tp.load()
+    torch.cuda.synchronize()
+    tp_build_s = time.perf_counter() - t0
+    prompt = np.random.default_rng(seed).integers(
+        4, cfg12.vocab_size, (1, 64)).astype(np.int32)
+    sampling = SamplingConfig(temperature=0.0,
+                              max_new_tokens=MESH_NEW_TOKENS, eos_id=-1)
+    t0 = time.perf_counter()
+    want_tok = gen.generate_ids(prompt, np.asarray([64]), sampling)
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_tok = tp.generate_ids(prompt, np.asarray([64]), sampling)
+    tp_s = time.perf_counter() - t0
+    check(np.array_equal(got_tok, want_tok),
+          f"6h TP 12B tokens {got_tok} != {want_tok}")
+    launches = dict(_kernels.LAUNCHES)
+    plain = dict(_kernels.PLAIN_ON_CUDA)
+    del gen, tp
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mesh (a): NCCL world 1; sharded store {json.dumps(arms)}; DP "
+        f"embed err {dp_err:.2e}; ring encoder err {ring_err:.2e}; TP 12B "
+        f"(model=1) built in {tp_build_s:.2f} s, {MESH_NEW_TOKENS} greedy "
+        f"tokens equal: {got_tok.tolist()} ({tp_s:.2f} s; unsharded "
+        f"{plain_s:.2f} s); launches {launches}, twins {plain}")
+    out.update(launches=launches, plain_on_cuda=plain, store=arms,
+               dp_embed_err=dp_err, ring_encoder_err=ring_err,
+               tp_12b_tokens_s=tp_s, tp_12b_plain_s=plain_s)
+
+    # (b) logical shards on the one card
+    base = mesh_index(index, None)
+    img = base.device_image()
+    q = base._queries(q_dense)
+    per = img["n_pad"] // MESH_SHARDS
+
+    def logical():
+        halves = [local_topk(*fused_topk(
+            q, img["embs"][j * per:(j + 1) * per], MESH_K,
+            penalty=img["alive_penalty"][j * per:(j + 1) * per]), MESH_K,
+            torch.arange(j * per, (j + 1) * per, dtype=torch.int32,
+                         device=dev)) for j in range(MESH_SHARDS)]
+        return merge_topk(torch.stack([h[0] for h in halves], 1),
+                          torch.stack([h[1] for h in halves], 1), MESH_K)
+
+    def whole():
+        return fused_topk(q, img["embs"], MESH_K,
+                          penalty=img["alive_penalty"])
+
+    merge_err = same_ranking(logical(), whole(), "6h logical shards")
+    out["logical_shards"] = {"max_abs_err": merge_err,
+                             "ms": cuda_ms(logical),
+                             "whole_ms": cuda_ms(whole)}
+    del base, img
+    gen_r = torch.Generator(device=dev).manual_seed(seed)
+    ring = {}
+    for dt, tol in (("float32", FLASH_TOL["float32"]),
+                    ("bfloat16", BF16_TOL)):
+        qkv = [torch.randn(RING_SHAPE, generator=gen_r, device=dev).to(
+            getattr(torch, dt)) for _ in range(3)]
+        lens_r = torch.tensor(RING_LENGTHS, device=dev)
+        blocks = ring_attention_blocks(*qkv, lens_r, MESH_SHARDS)
+        one = flash_attention(*qkv, lens_r)
+        err = float((blocks[0].float() - one[0].float()).abs().max())
+        mean_v = qkv[2][1].float().mean(dim=1, keepdim=True)
+        empty_err = float((blocks[1].float() - mean_v).abs().max())
+        check(err <= tol, f"6h ring {dt}: blocks vs one K1 differ by {err}")
+        check(empty_err <= tol, f"6h ring {dt}: the length-0 row is "
+              f"{empty_err} from the mean of the values")
+        ring[dt] = {"max_abs_err": err, "empty_row_err": empty_err,
+                    "blocks_ms": cuda_ms(lambda: ring_attention_blocks(
+                        *qkv, lens_r, MESH_SHARDS), iters=10),
+                    "one_k1_ms": cuda_ms(lambda: flash_attention(
+                        *qkv, lens_r), iters=10)}
+        del qkv, blocks, one
+    out["ring"] = ring
+    log(f"mesh (b): {MESH_SHARDS} logical shards {out['logical_shards']}; "
+        f"ring {RING_SHAPE} lengths {RING_LENGTHS}: {json.dumps(ring)}")
+
+    # (c) the encoders in bf16 against f32
+    ecfg16 = dataclasses.replace(enc.config, dtype=torch.bfloat16)
+    m3cfg16 = dataclasses.replace(emb.config.model, encoder=ecfg16)
+    e16 = Embedder(dataclasses.replace(emb.config, model=m3cfg16),
+                   tokenizer=emb.tokenizer, device=dev)
+    with torch.device(dev):
+        e16.model = BgeM3Model(m3cfg16).eval()
+    e16.model.load_state_dict(emb.model.state_dict())
+    rr = stack.pipeline.reranker
+    rr.load()
+    r16 = CrossEncoderReranker(config=rr.config, model_config=ecfg16,
+                               device=dev, tokenizer=rr.tokenizer)
+    with torch.device(dev):
+        r16.model = CrossEncoderModel(
+            ecfg16, with_head_dense=rr.model.with_head_dense).eval()
+    r16.model.load_state_dict(rr.model.state_dict())
+    dense_err = float(np.abs(e16.embed_queries(qs) - q_dense).max())
+    _, rows = index.search_dense(q_dense[:1], 40)
+    cand = [(qs[0], stack.pipeline.retriever.chunk_text(int(r)))
+            for r in rows[0] if r >= 0]
+    cross_err = float(np.abs(r16.score_pairs(cand)
+                             - rr.score_pairs(cand)).max())
+    check(dense_err <= BF16_TOL, f"6h bf16 query vectors differ by "
+          f"{dense_err}")
+    check(cross_err <= BF16_TOL, f"6h bf16 cross scores differ by "
+          f"{cross_err}")
+    enc_ms = {"float32": cuda_ms(lambda: emb.embed_queries(qs[:1])),
+              "bfloat16": cuda_ms(lambda: e16.embed_queries(qs[:1]))}
+    cross_ms = {"float32": cuda_ms(lambda: rr.score_pairs(cand), iters=5),
+                "bfloat16": cuda_ms(lambda: r16.score_pairs(cand),
+                                    iters=5)}
+    p50 = {}
+    for dt, (e, r) in (("float32", (emb, rr)), ("bfloat16", (e16, r16))):
+        s = build_stack(paths=stack.paths, llm=ExtractiveFakeLLM(),
+                        index=index, embedder=e, reranker=r, device=dev)
+        p50[dt] = float(np.median(timed_queries(s.pipeline, qs)) * 1e3)
+    out["bf16"] = {"query_vector_err": dense_err, "cross_score_err": cross_err,
+                   "query_encode_ms": enc_ms, "cross_40_pairs_ms": cross_ms,
+                   "query_p50_ms": p50}
+    log(f"mesh (c): bf16 against f32: {json.dumps(out['bf16'])}")
+    del e16, r16
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {out['phase_s']:.1f} s")
+    return out
 
 
 def record_flash_shapes(pipeline, question) -> dict:
@@ -4919,6 +5239,11 @@ def main() -> int:
         check(not any(launched["plain_on_cuda"].values()),
               f"a twin ran in the {phase} serve phase: "
               f"{launched['plain_on_cuda']}")
+    for name in MESH_KERNELS:
+        check(path["mesh"]["launches"][name] > 0,
+              f"{name} never launched in the mesh phase (6h)")
+    check(not any(path["mesh"]["plain_on_cuda"].values()),
+          f"a twin ran in the mesh phase: {path['mesh']['plain_on_cuda']}")
     for name in MAXSIM_KERNELS:
         check(path["maxsim"]["launches"][name] > 0,
               f"{name} never launched in the MaxSim serve phase")
@@ -4951,7 +5276,8 @@ def main() -> int:
                "continuous_launches":
                    path["continuous"]["launches"][name],
                "vision_launches":
-                   path["continuous"]["vision"]["launches"][name]}
+                   path["continuous"]["vision"]["launches"][name],
+               "mesh_launches": path["mesh"]["launches"][name]}
         for name in SERVE_KERNELS}
     # the ingest pipeline's (phase 5b) and its update's launches of K1, K4
     ingest_launches = {
@@ -5068,6 +5394,8 @@ def main() -> int:
                        for k, v in path["generate"].items()},
                     **{f"continuous_{k}": v
                        for k, v in path["continuous"].items()
+                       if k not in ("launches", "plain_on_cuda")},
+                    **{f"mesh_{k}": v for k, v in path["mesh"].items()
                        if k not in ("launches", "plain_on_cuda")},
                     "hermetic_trained": hermetic["none"]["gated"],
                     "hermetic_trained_maxsim": hermetic["maxsim"]["gated"],

@@ -34,8 +34,22 @@ Search engines:
   impact-ordered postings engine (`ops.postings`), filtered queries
   through an unfiltered overfetch and a host filter.
 ColBERT rows stay on the host in f16 (`colbert_vectors`, for the MaxSim
-rerank). Mesh sharding (the reference's sharded branches) is a later slice
-of the port (ROADMAP item 9).
+rerank).
+
+With a mesh (`DeviceIndex(config, mesh=mesh)`, `parallel.create_mesh`) the
+device image is row-sharded over the mesh's `shard` axis, as the
+reference's is: `n_pad` rounds up to `row_block × shards`, and each rank
+uploads only its own block of rows (`_put_rows`). Every engine then runs
+its single-device local function on the rank's block and merges the
+shards' top-k lists through one all-gather (`parallel.collectives`):
+dense bf16 is K4 with the penalty (ties lowest row first, as `lax.top_k`
+on the CPU); int8 is the sweep's best 4k (by row blocks past the score
+budget), refined on the host against the f16 rows or, with
+`device_refine`, on the card: each rank re-scores the candidates it holds
+and one all-reduce (max) gives every rank all of them; the sparse arm is
+`ell_scores` + a stable top-k below `postings_threshold` rows a shard, else
+each rank's own postings inversion. Every rank of the mesh must call the
+same searches in the same order.
 """
 
 from __future__ import annotations
@@ -47,18 +61,26 @@ from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import approx_topk, blocked_topk, default_device
 from ..ops import topk
 from ..ops.postings import PostingsIndex, postings_candidates_topk
 from ..ops.quantize import (
+    _dequant_rows,
+    _rescore,
+    _stable_topk,
+    _top_refined,
     approx_topk_int8,
     approx_topk_int8_blockscan,
     approx_topk_int8_selfrefined,
+    int8_blockscan_candidates,
     quantize_rows,
 )
 from ..ops.sparse import ell_scores, ell_topk
-from ..ops.topk import pad_columns
+from ..ops.topk import fused_topk, pad_columns
+from ..parallel import mesh as pmesh
+from ..parallel.collectives import sharded_topk_multi
 from .metadata import MetadataStore, compile_filter
 
 NEG_INF = -1e30
@@ -98,8 +120,15 @@ class IndexConfig:
 
 
 class DeviceIndex:
-    def __init__(self, config: IndexConfig, device=None):
+    """`mesh`: a (data, model, shard) `DeviceMesh` to row-shard the device
+    image over (this rank's device then holds its block); None: one
+    device."""
+
+    def __init__(self, config: IndexConfig, device=None, mesh=None):
         self.config = config
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = pmesh.mesh_device(mesh)
         self.device = default_device(device)
         self.ids: list[str] = []
         self._id_pos: dict[str, int] = {}
@@ -252,8 +281,19 @@ class DeviceIndex:
         self._device = None
 
     # ------------------------------------------------------------ device
+    def _shards(self) -> int:
+        return 1 if self.mesh is None else pmesh.axis_size(self.mesh)
+
+    def _put_rows(self, x):
+        """An array [n_pad, ...] on the device: whole without a mesh, else
+        only this rank's block of rows along the shard axis (no rank ships
+        another's rows)."""
+        if self.mesh is None:
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return pmesh.shard_leading_axis(self.mesh, np.ascontiguousarray(x))
+
     def _n_pad(self) -> int:
-        blk = self.config.row_block
+        blk = self.config.row_block * self._shards()
         return max(blk, -(-self.n_rows // blk) * blk)
 
     def device_image(self):
@@ -271,9 +311,7 @@ class DeviceIndex:
         alive[:n] = self._alive.astype(np.float32)
         alive_penalty = (alive - 1.0) * 1e4  # 0 for live, -1e4 otherwise
 
-        def put(x):
-            return torch.from_numpy(x).to(self.device)
-
+        put = self._put_rows
         embs_d, embs_i8, embs_scale = put(embs), None, None
         if cfg.quantize_int8:  # the bf16 image is not kept, as in JAX
             embs_i8, embs_scale = quantize_rows(embs_d)
@@ -289,6 +327,7 @@ class DeviceIndex:
             "terms": put(terms),
             "impacts": put(impacts),
             "alive_penalty": put(alive_penalty),
+            "row_ids": put(np.arange(n_pad, dtype=np.int32)),
             "n_pad": n_pad,
         }
         return self._device
@@ -312,7 +351,7 @@ class DeviceIndex:
             return dev["alive_penalty"]
         m = np.full((dev["n_pad"],), -1e4, np.float32)
         m[: len(mask)] = np.where(mask, 0.0, -1e4)
-        return torch.from_numpy(m).to(self.device)
+        return self._put_rows(m)
 
     def _finish(self, s, i, k):
         """Any slot whose score carries the −1e4 penalty (or points past
@@ -341,6 +380,10 @@ class DeviceIndex:
         rows; -1 = empty). Filter `where` is a ChromaDB-style tree."""
         dev = self.device_image()
         mask = self._mask_vector(where)
+        if self.mesh is not None:
+            if dev["embs_i8"] is not None:
+                return self._sharded_int8(queries, k, mask, dev)
+            return self._sharded_dense(self._queries(queries), k, mask, dev)
         if dev["embs_i8"] is not None:
             return self._int8_dense(queries, k, mask, dev)
         q = self._queries(queries)
@@ -362,6 +405,115 @@ class DeviceIndex:
         s, i = _host(s), _host(i)
         i = np.where((i >= 0) & (i < self.n_rows), i, -1)
         return self._strip_dead(s, i, k)
+
+    # --------------------------------------------------- sharded engines
+    def _sharded_dense(self, q, k: int, mask, dev):
+        """Each shard's exact top-min(k, n_local) by K4 with the combined
+        penalty, merged (the reference's exact and approximate arms select
+        the same rows on the CPU)."""
+        def local_fn(qs, shard_embs, pen):
+            return fused_topk(qs, shard_embs, min(k, shard_embs.shape[0]),
+                              penalty=pen)
+
+        pen = self._combined_penalty(mask, dev)
+        s, i = sharded_topk_multi(self.mesh, local_fn, k, 2)(
+            q, dev["row_ids"], dev["embs"], pen)
+        return self._finish(s, i, k)
+
+    def _sharded_int8(self, queries, k: int, mask, dev):
+        """The sharded int8 sweep: each shard's best min(4k, n_local) by
+        the sweep (over row blocks past the score budget, or
+        `sweep_block_rows`), merged to 4k; then the exact refine on the
+        host against the f16 rows, or with `device_refine` on the card
+        against the dequantized int8 rows of the shard that holds each
+        candidate."""
+        qf32 = np.asarray(queries, np.float32)
+        qf = self._queries(qf32, torch.float32)
+        q_i8, q_scale = quantize_rows(qf)
+        k_fetch = min(4 * k, dev["n_pad"])
+        blk = self.config.sweep_block_rows or max(
+            self.config.row_block, SCORE_BUDGET // max(qf.shape[0], 1))
+
+        def local_fn(qi, e_i8, e_scale, pen):
+            kk = min(k_fetch, e_i8.shape[0])
+            if blk < e_i8.shape[0]:
+                return int8_blockscan_candidates(
+                    qi, q_scale, e_i8, e_scale, kk, blk, penalty=pen)
+            return approx_topk_int8(qi, q_scale, e_i8, e_scale, kk,
+                                    oversample=1, penalty=pen)
+
+        pen = self._combined_penalty(mask, dev)
+        s, i = sharded_topk_multi(self.mesh, local_fn, k_fetch, 3)(
+            q_i8, dev["row_ids"], dev["embs_i8"], dev["embs_scale"], pen)
+        if self.config.device_refine:
+            return self._finish(*self._sharded_refine(qf, s, i, k, dev), k)
+        s, i = _host(s), _host(i)
+        ok = (i >= 0) & (i < self.n_rows) & (s > -5e3)
+        return self._host_refine(qf32, s, i, ok, k)
+
+    def _sharded_refine(self, qf, cand_s, cand_i, k: int, dev):
+        """`dequant_refine` over the shards: each rank re-scores, against
+        its dequantized int8 rows, the candidates it holds (the rest
+        −1e30), one all-reduce (max) gives every rank every exact score,
+        then the exact top-k of them as `dequant_refine` takes it."""
+        lo, hi = _local_row_range(self.mesh, dev["n_pad"])
+        mine = (cand_i >= lo) & (cand_i < hi) & (cand_s > -5e3)
+        local = torch.where(mine, cand_i - lo, 0).long()
+        exact = _rescore(qf, _dequant_rows(dev["embs_i8"],
+                                           dev["embs_scale"], local))
+        exact = torch.where(mine, exact, NEG_INF).contiguous()
+        dist.all_reduce(exact, op=dist.ReduceOp.MAX,
+                        group=self.mesh.get_group(pmesh.AXIS_SHARD))
+        safe = torch.where(cand_i >= 0, cand_i, 0).long()
+        return _top_refined(exact, safe, k, drop_empty=True)
+
+    def _sharded_postings(self, dev):
+        """This rank's impact-ordered posting table over its own block of
+        rows (local doc ids; the merge maps them to global)."""
+        if "postings_sharded" not in dev:
+            lo, hi = _local_row_range(self.mesh, dev["n_pad"])
+            n_pad = dev["n_pad"]
+            nloc = hi - lo
+            vocab = int(self._terms.max()) + 1 if self.n_rows else 1
+            cap = min(self.config.postings_cap,
+                      max(64, -(-nloc // 64) * 64))
+            w = self.config.ell_width
+            terms = np.full((n_pad, w), -1, np.int32)
+            terms[: self.n_rows] = self._terms
+            imps = np.zeros((n_pad, w), np.float32)
+            imps[: self.n_rows] = self._impacts
+            dev["postings_sharded"] = PostingsIndex.build(
+                terms[lo:hi], imps[lo:hi], vocab_size=max(vocab, 1),
+                cap=cap).device_arrays(self.device)
+        return dev["postings_sharded"]
+
+    def _sharded_sparse(self, qt, qw, k: int, mask, dev):
+        """Row-sharded lexical top-k, the single-device engine choice a
+        shard: the ELL scores + a stable top-k (JAX's `lax.top_k`; not K3,
+        whose C-1 tie order would move zero-score ranks), or above
+        `postings_threshold` rows a shard (or Q·T > 128) the rank's own
+        postings; the penalty folds filters and tombstones in."""
+        nloc = dev["n_pad"] // self._shards()
+        heavy = qt.shape[0] * qt.shape[1] > 128
+        pen = self._combined_penalty(mask, dev)
+        if nloc > self.config.postings_threshold or heavy:
+            post_docs, post_imps = self._sharded_postings(dev)
+            n_cand = self.config.postings_candidates
+
+            def local_fn(q_pack, terms, impacts, pen_l):
+                s, ids = postings_candidates_topk(
+                    post_docs, post_imps, terms, impacts, *q_pack,
+                    k=min(k, terms.shape[0]), n_candidates=n_cand,
+                    penalty=pen_l)
+                return s, torch.where(ids >= 0, ids, 0)
+        else:
+            def local_fn(q_pack, terms, impacts, pen_l):
+                s = ell_scores(terms, impacts, *q_pack) + pen_l[None, :]
+                return _stable_topk(s, min(k, s.shape[1]))
+
+        s, i = sharded_topk_multi(self.mesh, local_fn, k, 3)(
+            (qt, qw), dev["row_ids"], dev["terms"], dev["impacts"], pen)
+        return self._finish(s, i, k)
 
     def _int8_dense(self, queries, k: int, mask, dev):
         """Int8 search; filters fold into the penalty. The reference's
@@ -463,6 +615,8 @@ class DeviceIndex:
         qt = torch.from_numpy(np.asarray(q_terms, np.int32)).to(self.device)
         qw = torch.from_numpy(np.asarray(q_weights, np.float32)).to(
             self.device)
+        if self.mesh is not None:
+            return self._sharded_sparse(qt, qw, k, mask, dev)
         if postings:
             arrays = self._postings_index()
             fetch = k if mask is None else min(max(4 * k, 64), 256)
@@ -587,11 +741,11 @@ class DeviceIndex:
             )
 
     @classmethod
-    def load(cls, directory, device=None) -> "DeviceIndex":
+    def load(cls, directory, device=None, mesh=None) -> "DeviceIndex":
         d = pathlib.Path(directory)
         manifest = json.loads((d / "manifest.json").read_text())
         cfg = IndexConfig(**manifest["config"])
-        idx = cls(cfg, device=device)
+        idx = cls(cfg, device=device, mesh=mesh)
         arrays = np.load(d / "arrays.npz")
         idx._dense = arrays["dense"]
         idx._terms = arrays["terms"]
@@ -615,6 +769,11 @@ class DeviceIndex:
                 json.loads(bm25_path.read_text())
             )
         return idx
+
+
+def _local_row_range(mesh, n_pad: int) -> tuple[int, int]:
+    """[lo, hi) of the image rows this rank holds (all without a mesh)."""
+    return (0, n_pad) if mesh is None else pmesh.local_row_range(n_pad, mesh)
 
 
 def _host(t) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Corpus indexer: chunks → device index (TPU batch encode).
 
-Port of `rag_dpo_tpu/ingest/indexer.py` on one torch device: the index
-lives on `device` (default: the embedder's). A fresh build takes BM25 stats
+Port of `rag_dpo_tpu/ingest/indexer.py`: the index lives on `device`
+(default: the embedder's), or row-sharded over `mesh` where one is given. A fresh build takes BM25 stats
 and ELL arrays from the C++ ingestion runtime (`native`) wherever the JAX
 indexer does, else from the Python path.
 
@@ -48,8 +48,10 @@ class IndexerReport:
 class CorpusIndexer:
     def __init__(self, embedder: Embedder, ell_width: int = 32,
                  with_colbert: bool = False, colbert_len: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         self.embedder = embedder
+        # a fresh index is row-sharded over `mesh` (`DeviceIndex(mesh=)`)
+        self.mesh = mesh
         self.ell_width = ell_width
         self.with_colbert = with_colbert
         self.colbert_len = colbert_len
@@ -121,7 +123,8 @@ class CorpusIndexer:
                                  if self.with_colbert else 0),
                     colbert_len=self.colbert_len,
                 ),
-                device=self.device,
+                device=None if self.mesh is not None else self.device,
+                mesh=self.mesh,
             )
         if incremental:
             # avgdl moved: re-derive every existing row's impacts under

@@ -21,7 +21,7 @@ from torch import nn
 
 from ..ops import default_device
 from .convert import load_flax_params
-from .encoder import EncoderConfig, TransformerEncoder, init_random_
+from .encoder import Dense, EncoderConfig, TransformerEncoder, init_random_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,10 +55,11 @@ class BgeM3Model(nn.Module):
         self.config = config
         h = config.encoder.hidden_size
         self.encoder = TransformerEncoder(config.encoder)
+        dt = config.encoder.dtype
         if config.with_sparse:
-            self.sparse_head = nn.Linear(h, 1)
+            self.sparse_head = Dense(h, 1, dt)
         if config.with_colbert:
-            self.colbert_head = nn.Linear(h, config.colbert_dim)
+            self.colbert_head = Dense(h, config.colbert_dim, dt)
 
     def forward(self, input_ids, lengths=None,
                 dense_only: bool = False) -> M3Output:

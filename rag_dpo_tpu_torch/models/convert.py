@@ -34,14 +34,16 @@ from .encoder import LayerNorm
 
 
 def flatten_params(tree: dict, prefix: str = "") -> dict:
-    """Nested param tree → flat {'a/b/c': ndarray} (npz-serializable)."""
+    """Nested param tree → flat {'a/b/c': ndarray} (npz-serializable);
+    torch tensor leaves stay tensors where they are."""
     out = {}
     for key, value in tree.items():
         path = f"{prefix}/{key}" if prefix else key
         if isinstance(value, dict):
             out.update(flatten_params(value, path))
         else:
-            out[path] = np.asarray(value)
+            out[path] = (value if isinstance(value, torch.Tensor)
+                         else np.asarray(value))
     return out
 
 
@@ -63,8 +65,18 @@ def load_params_npz(path) -> dict:
     return {"params": tree}
 
 
+def _as_type(value, dtype):
+    """A numpy leaf as a writable copy in `dtype` (a numpy dtype); a torch
+    leaf in that dtype on its device (no copy where it has it already)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(torch.from_numpy(np.zeros(0, dtype)).dtype)
+    return np.array(value, dtype)
+
+
 def flax_to_state_dict(tree: dict) -> dict[str, np.ndarray]:
-    """Flax tree ({'params': …} or bare) → torch state-dict names/layouts."""
+    """Flax tree ({'params': …} or bare) → torch state-dict names/layouts
+    (numpy leaves, or torch tensors on their device where the tree holds
+    tensors)."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     flat = flatten_params(tree)
@@ -72,10 +84,9 @@ def flax_to_state_dict(tree: dict) -> dict[str, np.ndarray]:
     for path, value in flat.items():
         *scope, leaf = path.split("/")
         if leaf == "kernel_q":
-            out[".".join([*scope, "weight_q"])] = np.ascontiguousarray(
-                np.asarray(value, np.int8).T)
+            out[".".join([*scope, "weight_q"])] = _as_type(value, np.int8).T
             continue
-        value = np.array(value, np.float32)  # a writable copy
+        value = _as_type(value, np.float32)  # a writable copy
         if leaf == "kernel":
             leaf, value = "weight", value.T
         elif leaf == "scale" and "/".join([*scope, "kernel_q"]) in flat:
@@ -126,7 +137,8 @@ def load_flax_params(module: nn.Module, tree: dict) -> nn.Module:
             if tuple(dst.shape) != value.shape:
                 raise ValueError(f"{name}: module {tuple(dst.shape)} vs "
                                  f"tree {value.shape}")
-            dst.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+            dst.copy_(value if isinstance(value, torch.Tensor)
+                      else torch.from_numpy(np.ascontiguousarray(value)))
     return module
 
 

@@ -25,6 +25,16 @@ Numerics kept from the reference:
   of S rows starts at `min(positions[:, 0], max_len - S)`, and `write_mask`
   zeroes the rows of padding tokens.
 
+Tensor parallelism (`models/sharding.py`): a model built with a
+`TensorParallel` holds this rank's Megatron slices of the float
+projections: q/k/v, gate and up keep 1/tp of their output features, o_proj
+and down_proj 1/tp of their input features and all-reduce their products
+over the model group. Attention then runs on this rank's nh/tp query and
+nkv/tp KV heads, and the KV caches hold those heads (`cache_heads`). Where
+tp does not divide nkv the q/k/v slices are all-gathered first and every
+rank attends all heads, as JAX's program still computes there. The int8
+projections stay whole on every rank (JAX's rules replicate `kernel_q`).
+
 Two things differ in how, not in what, is computed. The cache is updated in
 place (the JAX module returns a new one). Attention runs in blocks of query
 rows over the first `kv_len` cache rows, where `kv_len` is a bound the
@@ -40,6 +50,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -247,6 +258,34 @@ class Frame:
                    bidx=torch.arange(b, device=dev)[:, None])
 
 
+def _tp_of(cfg: DecoderConfig, tp):
+    """The model axis this module's projections are split over, or None
+    where they are whole: no TP, a TP of one, or int8 projections."""
+    if tp is None or tp.size == 1 or cfg.quantize_weights:
+        return None
+    return tp
+
+
+def _split(n: int, tp, what: str) -> int:
+    if n % tp.size:
+        raise ValueError(f"{what} of {n} does not split over model="
+                         f"{tp.size}")
+    return n // tp.size
+
+
+def _all_reduce(x, tp):
+    if tp is not None:
+        dist.all_reduce(x, group=tp.group)
+    return x
+
+
+def _gather_features(x, tp):
+    """[..., F/tp] slices of every rank of the model group → [..., F]."""
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    dist.all_gather(parts, x.contiguous(), group=tp.group)
+    return torch.cat(parts, dim=-1)
+
+
 def _write_rows(cache, frame: Frame, values):
     """cache[b, rows[b, s]] = values[b, s] for every row b: the window of
     one `dynamic_update_slice` a row."""
@@ -254,15 +293,23 @@ def _write_rows(cache, frame: Frame, values):
 
 
 class GQAttention(nn.Module):
-    def __init__(self, config: DecoderConfig):
+    def __init__(self, config: DecoderConfig, tp=None):
         super().__init__()
         cfg = self.config = config
         nh, nkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.dh
         h = cfg.hidden_size
-        self.q_proj = _linear(cfg, h, nh * dh)
-        self.k_proj = _linear(cfg, h, nkv * dh)
-        self.v_proj = _linear(cfg, h, nkv * dh)
-        self.o_proj = _linear(cfg, nh * dh, h)
+        self.tp = tp = _tp_of(cfg, tp)
+        qf, kvf = nh * dh, nkv * dh
+        if tp is not None:
+            qf, kvf = _split(qf, tp, "nh·dh"), _split(kvf, tp, "nkv·dh")
+        # heads attended here: this rank's, or all of them after a gather
+        self.gather = tp is not None and nkv % tp.size != 0
+        self.heads = ((nh // tp.size, nkv // tp.size)
+                      if tp is not None and not self.gather else (nh, nkv))
+        self.q_proj = _linear(cfg, h, qf)
+        self.k_proj = _linear(cfg, h, kvf)
+        self.v_proj = _linear(cfg, h, kvf)
+        self.o_proj = _linear(cfg, qf, h)
 
     def forward(self, hidden, frame: Frame, cache=None, attn_mask=None,
                 write_mask=None):
@@ -273,11 +320,15 @@ class GQAttention(nn.Module):
         the first `frame.kv_len` rows; returns (out, cache)."""
         cfg = self.config
         b, s, _ = hidden.shape
-        nh, nkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.dh
+        (nh, nkv), dh = self.heads, cfg.dh
         kv_len = frame.kv_len
-        q = rope(self.q_proj(hidden).reshape(b, s, nh, dh), frame.tables)
-        k = rope(self.k_proj(hidden).reshape(b, s, nkv, dh), frame.tables)
-        v = self.v_proj(hidden).reshape(b, s, nkv, dh)
+        q, k, v = (lin(hidden) for lin in
+                   (self.q_proj, self.k_proj, self.v_proj))
+        if self.gather:
+            q, k, v = (_gather_features(x, self.tp) for x in (q, k, v))
+        q = rope(q.reshape(b, s, nh, dh), frame.tables)
+        k = rope(k.reshape(b, s, nkv, dh), frame.tables)
+        v = v.reshape(b, s, nkv, dh)
 
         if cache is not None:
             if write_mask is not None:
@@ -323,17 +374,24 @@ class GQAttention(nn.Module):
             probs = torch.softmax(
                 torch.where(mask, logits, NEG_INF), dim=-1)
             ctx[:, i:i + step] = torch.einsum("bksgm,bmkd->bskgd", probs, vf)
-        out = self.o_proj(_as(ctx.reshape(b, s, nh * dh), cfg.dtype))
+        ctx = ctx.reshape(b, s, nh * dh)
+        if self.gather:   # this rank's input features of o_proj
+            per = nh * dh // self.tp.size
+            ctx = ctx[..., self.tp.rank * per:(self.tp.rank + 1) * per]
+        out = _all_reduce(self.o_proj(_as(ctx, cfg.dtype)), self.tp)
         return out, cache
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, config: DecoderConfig):
+    def __init__(self, config: DecoderConfig, tp=None):
         super().__init__()
         cfg = self.config = config
         h, f = cfg.hidden_size, cfg.intermediate_size
+        self.tp = _tp_of(cfg, tp)
+        if self.tp is not None:
+            f = _split(f, self.tp, "intermediate_size")
         self.input_norm = RMSNorm(h, cfg.rms_norm_eps, cfg.param_dtype)
-        self.attention = GQAttention(cfg)
+        self.attention = GQAttention(cfg, tp)
         self.post_attention_norm = RMSNorm(h, cfg.rms_norm_eps,
                                            cfg.param_dtype)
         self.gate_proj = _linear(cfg, h, f)
@@ -347,20 +405,25 @@ class DecoderLayer(nn.Module):
         hidden = hidden + attn_out
         mlp_in = self.post_attention_norm(hidden)
         gate = F.silu(self.gate_proj(mlp_in))
-        hidden = hidden + self.down_proj(gate * self.up_proj(mlp_in))
+        hidden = hidden + _all_reduce(
+            self.down_proj(gate * self.up_proj(mlp_in)), self.tp)
         return hidden, cache
 
 
 class DecoderModel(nn.Module):
-    """→ logits [B, S, V] (+ the caches, written in place, when passed)."""
+    """→ logits [B, S, V] (+ the caches, written in place, when passed).
+    `tp`: this rank's `models.sharding.TensorParallel`, or None."""
 
-    def __init__(self, config: DecoderConfig):
+    def __init__(self, config: DecoderConfig, tp=None):
         super().__init__()
         cfg = self.config = config
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype,
                                   cfg.param_dtype)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", DecoderLayer(cfg))
+            self.add_module(f"layer_{i}", DecoderLayer(cfg, tp))
+        # the KV heads each cache holds on this rank
+        self.cache_heads = self.layer_0.attention.heads[1] \
+            if cfg.num_layers else cfg.num_kv_heads
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                   cfg.param_dtype)
         if not cfg.tie_embeddings:
@@ -413,10 +476,12 @@ class DecoderModel(nn.Module):
 
     @staticmethod
     def init_cache(cfg: DecoderConfig, batch: int,
-                   length: int | None = None, device=None):
-        # `length` bounds the cache rows (default: full context)
-        kv_shape = (batch, length or cfg.max_seq_len, cfg.num_kv_heads,
-                    cfg.dh)
+                   length: int | None = None, device=None,
+                   kv_heads: int | None = None):
+        # `length` bounds the cache rows (default: full context);
+        # `kv_heads` the heads (default all: a TP model's `cache_heads`)
+        kv_shape = (batch, length or cfg.max_seq_len,
+                    kv_heads or cfg.num_kv_heads, cfg.dh)
         if cfg.quantize_kv:
             sc_shape = kv_shape[:-1]
             return [
@@ -439,11 +504,12 @@ class DecoderModel(nn.Module):
         ]
 
 
-def build_decoder(cfg: DecoderConfig, device) -> DecoderModel:
+def build_decoder(cfg: DecoderConfig, device, tp=None) -> DecoderModel:
     """The module with its parameters allocated on `device` and not yet
-    filled: random init or a loaded tree fills them."""
+    filled: random init or a loaded tree fills them. `tp`: this rank's
+    `TensorParallel` (its slices are allocated)."""
     with torch.device(device):
-        model = DecoderModel(cfg)
+        model = DecoderModel(cfg, tp)
     return model.requires_grad_(False).eval()
 
 
@@ -471,6 +537,30 @@ def init_random_(model: DecoderModel, generator: torch.Generator
             elif isinstance(sub, RMSNorm):
                 sub.weight.fill_(1.0)
     return model
+
+
+def decoder_flax_tree(model: DecoderModel) -> dict:
+    """The model's parameters as the Flax tree `load_decoder_params` reads
+    ({'params': ...}; kernels transposed, `kernel_q` / `scale` for int8
+    projections), the leaves torch views on the model's device: what
+    `models.sharding.shard_params` slices without a host copy."""
+    tree: dict = {}
+    for scope, sub in model.named_modules():
+        if isinstance(sub, QuantDense):
+            leaves = {"kernel_q": sub.weight_q.T, "scale": sub.scale}
+        elif isinstance(sub, Dense):
+            leaves = {"kernel": sub.weight.T}
+        elif isinstance(sub, Embed):
+            leaves = {"embedding": sub.weight}
+        elif isinstance(sub, RMSNorm):
+            leaves = {"scale": sub.weight}
+        else:
+            continue
+        node = tree
+        for part in scope.split("."):
+            node = node.setdefault(part, {})
+        node.update({k: v.detach() for k, v in leaves.items()})
+    return {"params": tree}
 
 
 def load_decoder_params(model: DecoderModel, tree: dict) -> DecoderModel:

@@ -6,13 +6,17 @@ names (`layer_{i}.attention.query`, `attention_norm`, `intermediate`,
 dict one to one (`models.convert.load_flax_params`).
 
 Numerics kept from the reference: activations in `config.dtype` (f32 by
-default), LayerNorm statistics in f32 with Flax's fast variance
+default, or bf16), parameters in f32 and cast to that dtype for each
+product and lookup, as Flax's `nn.Dense(dtype=)` and `nn.Embed(dtype=)`
+cast them; LayerNorm statistics in f32 with Flax's fast variance
 (E[x²] − E[x]², floored at 0) and a cast back, exact-erf GELU, RoBERTa
 positions counted from the pad id. Attention goes through the flash kernels
 (`ops.flash_attention_bwd.flash_attention_fused`: the forward kernel, and
 the backward kernels when a gradient is asked for) unless
 `use_flash_attention` is off, where it takes the plain softmax reference,
-as the JAX encoder does. `remat` recomputes each layer in the backward pass
+as the JAX encoder does. `attention_impl="ring"` shards the sequence over
+the `shard` axis of the mesh that an enclosing
+`parallel.context_parallel(mesh)` scope names (`ops.ring_attention`). `remat` recomputes each layer in the backward pass
 (`torch.utils.checkpoint`), as the JAX encoder's `nn.remat` does.
 """
 
@@ -23,6 +27,7 @@ import dataclasses
 import torch
 import torch.utils.checkpoint
 from torch import nn
+from torch.nn import functional as F
 
 from ..ops.flash_attention import attention_reference
 from ..ops.flash_attention_bwd import flash_attention_fused
@@ -45,8 +50,9 @@ class EncoderConfig:
     # its own 64-row tiles
     flash_block_q: int = 512
     flash_block_k: int = 512
-    # 'flash', 'reference', or 'auto' (flash iff use_flash_attention);
-    # 'ring' (context parallelism) belongs to the multi-GPU slice
+    # 'flash', 'reference', 'auto' (flash iff use_flash_attention), or
+    # 'ring': context parallelism, the sequence sharded over the mesh
+    # `shard` axis of an enclosing `parallel.context_parallel(mesh)` scope
     attention_impl: str = "auto"
     # recompute each layer in the backward pass: more FLOPs for less
     # activation memory (training only; a no-op without gradients)
@@ -92,15 +98,47 @@ class LayerNorm(nn.Module):
         return (x - mu) * mul + self.bias.float()
 
 
+class Dense(nn.Linear):
+    """Flax `nn.Dense(dtype=)`: f32 parameters; the input, kernel and bias
+    cast to `dtype`, the product rounded to it, then the bias added in it.
+    In f32 this is `nn.Linear` itself. Outside a backward pass the cast
+    kernel and bias stay resident and are made again only when the
+    parameters change (their version counters move on a load or an
+    optimizer step), which gives the bits of Flax's cast per call without
+    its traffic."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, features)
+        self.dtype = dtype
+        self._cast = None
+
+    def _cast_params(self):
+        w, b = self.weight, self.bias
+        if torch.is_grad_enabled() and w.requires_grad:
+            return w.to(self.dtype), b.to(self.dtype)    # differentiable
+        key = (w._version, b._version, w.data_ptr(), b.data_ptr())
+        if self._cast is None or self._cast[0] != key:
+            self._cast = (key, w.detach().to(self.dtype),
+                          b.detach().to(self.dtype))
+        return self._cast[1], self._cast[2]
+
+    def forward(self, x):
+        if self.dtype == self.weight.dtype:
+            return super().forward(x.to(self.dtype))
+        w, b = self._cast_params()
+        return F.linear(x.to(self.dtype), w) + b
+
+
 class SelfAttention(nn.Module):
     def __init__(self, config: EncoderConfig):
         super().__init__()
-        h = config.hidden_size
+        h, dt = config.hidden_size, config.dtype
         self.config = config
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
-        self.output = nn.Linear(h, h)
+        self.query = Dense(h, h, dt)
+        self.key = Dense(h, h, dt)
+        self.value = Dense(h, h, dt)
+        self.output = Dense(h, h, dt)
 
     def forward(self, hidden, lengths):
         cfg = self.config
@@ -116,14 +154,20 @@ class SelfAttention(nn.Module):
         impl = cfg.attention_impl
         if impl == "auto":
             impl = "flash" if cfg.use_flash_attention else "reference"
-        if impl == "flash":
+        if impl == "ring":
+            from ..ops.ring_attention import ring_attention_inline
+            from ..parallel.mesh import active_cp_mesh
+
+            mesh = active_cp_mesh()
+            if mesh is None:
+                raise RuntimeError(
+                    "attention_impl='ring' needs an enclosing "
+                    "`with parallel.context_parallel(mesh):` scope")
+            ctx = ring_attention_inline(mesh, q, k, v, lengths)
+        elif impl == "flash":
             ctx = flash_attention_fused(q, k, v, lengths)
-        elif impl == "reference":
-            ctx = attention_reference(q, k, v, lengths)
         else:
-            raise NotImplementedError(
-                f"attention_impl={impl!r}: ring attention belongs to the "
-                "multi-GPU slice (ROADMAP, port queue item 9)")
+            ctx = attention_reference(q, k, v, lengths)
         ctx = ctx.transpose(1, 2).reshape(b, s, h)
         return self.output(ctx)
 
@@ -135,10 +179,10 @@ class EncoderLayer(nn.Module):
         eps = config.layer_norm_eps
         self.attention = SelfAttention(config)
         self.attention_norm = LayerNorm(config.hidden_size, eps)
-        self.intermediate = nn.Linear(config.hidden_size,
-                                      config.intermediate_size)
-        self.mlp_output = nn.Linear(config.intermediate_size,
-                                    config.hidden_size)
+        self.intermediate = Dense(config.hidden_size,
+                                  config.intermediate_size, config.dtype)
+        self.mlp_output = Dense(config.intermediate_size,
+                                config.hidden_size, config.dtype)
         self.output_norm = LayerNorm(config.hidden_size, eps)
 
     def forward(self, hidden, lengths):
@@ -155,11 +199,9 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, config: EncoderConfig):
         super().__init__()
-        if config.dtype != torch.float32:
-            raise NotImplementedError(
-                "the port runs encoders in f32, the reference default; "
-                "bf16 activations are not wired yet (ROADMAP Queue A "
-                "item 10)")
+        if config.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"encoder dtype is f32 or bf16, got "
+                             f"{config.dtype}")
         self.config = config
         h = config.hidden_size
         self.word_embeddings = nn.Embedding(config.vocab_size, h)
@@ -180,9 +222,11 @@ class TransformerEncoder(nn.Module):
             lengths = (input_ids != cfg.pad_token_id).sum(dim=1)
         lengths = lengths.to(torch.int32)
         pos_ids = position_ids_from_inputs(input_ids, cfg.pad_token_id)
-        emb = (self.word_embeddings(input_ids)
-               + self.position_embeddings(pos_ids)
-               + self.token_type_embeddings(torch.zeros_like(input_ids)))
+        dt = cfg.dtype
+        emb = (self.word_embeddings(input_ids).to(dt)
+               + self.position_embeddings(pos_ids).to(dt)
+               + self.token_type_embeddings(
+                   torch.zeros_like(input_ids)).to(dt))
         hidden = self.embeddings_norm(emb).to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers():

@@ -9,11 +9,10 @@ a row that emitted EOS is never reset.
 
 Sampling draws are POSITION-KEYED, as `step_keys` makes them in JAX: each
 draw is a pure function of (row seed, position, tag), computed on the device
-by a counter-based hash (`step_uniforms`) with no generator state. So a
-sampled stream is the same however it is chunked and whatever shares its
-batch, and identical prompts in one batch differ by their row seeds. The
-values are not threefry's (ROADMAP C-28): sampled tokens cannot equal
-JAX's, greedy ones do.
+by JAX's own counter-based hash (threefry-2x32, `threefry2x32`) with no
+generator state. So a sampled stream is the same however it is chunked and
+whatever shares its batch, identical prompts in one batch differ by their
+row seeds, and the uniforms are `jax.random.uniform`'s bit for bit.
 """
 
 from __future__ import annotations
@@ -66,47 +65,81 @@ def default_row_seeds(rng_seed: int, b: int) -> np.ndarray:
 
 
 _M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _mul32(x, c: int):
-    """(x · c) mod 2³² for int64 tensors x in [0, 2³²): two 16-bit halves
-    of c, so no intermediate leaves int64."""
-    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+def _rotl32(x, r: int):
+    return ((x << r) & _M32) | (x >> (32 - r))
 
 
-def _fmix32(x):
-    """Murmur3's 32-bit finalizer, a bijection on [0, 2³²)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
+def threefry2x32(k1, k2, x1, x2):
+    """Threefry-2x32 with 20 rounds, `jax.random`'s hash, on int64 tensors
+    holding uint32 values (every sum masked back to 32 bits): the key pair
+    (k1, k2) hashes the counter pair (x1, x2), all broadcast together."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl32(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x1, x2
 
 
 @dataclasses.dataclass(frozen=True)
 class StepKeys:
-    """Per-row draw keys of one decode position: (seed, position, tag) —
-    JAX's `fold_in(fold_in(key(seed), pos), tag)`."""
-    seeds: torch.Tensor      # [B] int64 in [0, 2³²)
-    pos: torch.Tensor        # [B] int64
-    tag: int = 0
+    """Per-row threefry keys of one decode position, the two 32-bit words
+    of JAX's `fold_in(fold_in(key(seed), pos), tag)`."""
+    k1: torch.Tensor         # [B] int64 in [0, 2³²)
+    k2: torch.Tensor
+
+
+def _fold_in(k1, k2, data):
+    """`jax.random.fold_in`: the key hashes the counter pair (0, data)."""
+    return threefry2x32(k1, k2, torch.zeros_like(data), data)
 
 
 def step_keys(seeds, pos, tag: int) -> StepKeys:
-    """Per-row keys for POSITION-KEYED sampling. `tag` separates several
+    """Per-row keys for POSITION-KEYED sampling, JAX's `step_keys`:
+    key_i = fold_in(fold_in(key(seeds[i]), pos[i]), tag), where
+    `key(s)` is the pair (0, s) of a 32-bit seed. `tag` separates several
     draws at one position (0 = the token draw, 1 = speculative-sampling
     accept uniforms)."""
-    return StepKeys(seeds.to(torch.int64) & _M32,
-                    pos.to(torch.int64) & _M32, int(tag))
+    seeds = seeds.to(torch.int64) & _M32
+    k1, k2 = _fold_in(torch.zeros_like(seeds), seeds,
+                      pos.to(torch.int64) & _M32)
+    k1, k2 = _fold_in(k1, k2, torch.full_like(k1, int(tag) & _M32))
+    return StepKeys(k1, k2)
 
 
-def step_uniforms(keys: StepKeys, n: int) -> torch.Tensor:
-    """[B, n] f32 uniforms in (0, 1): the j-th is a hash of (seed, pos,
-    tag, j), on the keys' device."""
-    key = _fmix32(_fmix32(_fmix32(keys.seeds) ^ keys.pos) ^ keys.tag)
-    j = torch.arange(n, device=key.device, dtype=torch.int64)
-    bits = _fmix32(key[:, None] ^ _fmix32(j + 0x9E3779B9 & _M32)[None, :])
-    return ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+def step_bits(keys: StepKeys, n: int) -> torch.Tensor:
+    """[B, n] int64 uint32 values: `jax.random.bits(key, (n,))` of each
+    row's key, in JAX's partitionable layout (the counters are the 64-bit
+    iota 0 … n−1 as (hi, lo) words, the two output words xor-ed)."""
+    j = torch.arange(n, device=keys.k1.device, dtype=torch.int64)[None, :]
+    b1, b2 = threefry2x32(keys.k1[:, None], keys.k2[:, None],
+                          torch.zeros_like(j), j)
+    return b1 ^ b2
+
+
+def step_uniforms(keys: StepKeys, n: int, minval: float = 0.0
+                  ) -> torch.Tensor:
+    """[B, n] f32: `jax.random.uniform(key, (n,), minval=minval)` of each
+    row's key, bit for bit: the top 23 bits as the mantissa of a float in
+    [1, 2), minus 1, scaled to [minval, 1) in f32."""
+    bits = (step_bits(keys, n) >> 9) | 0x3F800000
+    u = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32)
+    return torch.maximum(u * (1.0 - lo) + lo, lo.to(u.device))
+
+
+def step_gumbel(keys: StepKeys, n: int) -> torch.Tensor:
+    """[B, n] f32: `jax.random.gumbel(key, (n,))` of each row's key (the
+    "low" mode, JAX's default): −log(−log(u)), u uniform on [tiny, 1)."""
+    u = step_uniforms(keys, n, float(torch.finfo(torch.float32).tiny))
+    return -torch.log(-torch.log(u))
 
 
 def topk_topp_sample(logits, temps, keys: StepKeys, top_k: int,
@@ -137,7 +170,7 @@ def topk_topp_sample(logits, temps, keys: StepKeys, top_k: int,
         scaled = torch.where(keep, scaled, -torch.inf)
     if exclude is not None:
         scaled = torch.where(idxs == exclude[:, None], -torch.inf, scaled)
-    g = -torch.log(-torch.log(step_uniforms(keys, kk)))
+    g = step_gumbel(keys, kk)
     choice = torch.argmax(scaled + g, dim=-1)
     drawn = idxs.gather(1, choice[:, None])[:, 0]
     # the greedy rows' token is the argmax (the first of equal maxima),
@@ -220,13 +253,17 @@ class TextGenerator:
 
     `params`: a Flax `DecoderModel` tree ({'params': ...} or bare, as
     `models.convert.load_params_npz` reads it) or None for a seeded random
-    init (`rng_seed`) on `device` (default: the first CUDA card)."""
+    init (`rng_seed`) on `device` (default: the first CUDA card). A tree
+    of `models.sharding.shard_params` builds this rank's tensor-parallel
+    slice of the model; every rank of its model axis then runs the same
+    calls in the same order."""
 
     def __init__(self, config: DecoderConfig, params=None,
                  rng_seed: int = 0, device=None):
         self.config = config
         self.device = default_device(device)
         self._params = params
+        self.tp = getattr(params, "tp", None)
         self._rng_seed = rng_seed
         self.model: DecoderModel | None = None
         self._load_lock = threading.Lock()
@@ -238,7 +275,7 @@ class TextGenerator:
     def load(self) -> DecoderModel:
         with self._load_lock:
             if self.model is None:
-                model = build_decoder(self.config, self.device)
+                model = build_decoder(self.config, self.device, self.tp)
                 if self._params is None:
                     gen = torch.Generator(device=self.device)
                     gen.manual_seed(self._rng_seed)
@@ -283,7 +320,7 @@ class TextGenerator:
         model = self.load()
         b, s = ids.shape if embeds is None else embeds.shape[:2]
         caches = DecoderModel.init_cache(self.config, b, cache_len,
-                                         self.device)
+                                         self.device, model.cache_heads)
         positions = torch.arange(s, device=self.device).expand(b, s)
         valid = positions < lengths[:, None]
         logits, caches = model(ids, positions, caches, write_mask=valid,

@@ -9,6 +9,12 @@ one encoder forward on the batcher's thread (`serving.batcher`), padded to
 the same batch buckets as the JAX package's (1, 8, 64, then powers of
 two). `load_converted` takes an HF state dict (numpy arrays, as
 `models/convert_weights.py::load_state_dict` reads a snapshot).
+
+With a mesh (`Embedder(..., mesh=mesh)`) the encode is data-parallel, as
+the JAX provider's: the batch bucket rounds up to the mesh's data axis,
+each rank encodes its contiguous block of the padded batch on its device,
+and one all-gather over the data group puts every rank's outputs back in
+order. Every rank of the data axis calls the same encodes.
 """
 
 from __future__ import annotations
@@ -19,10 +25,12 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import BgeM3Config, BgeM3Model
-from ..models.bge_m3 import build_bge_m3
+from ..models.bge_m3 import M3Output, build_bge_m3
 from ..ops import default_device
+from ..parallel import mesh as pmesh
 from ..tokenize import HashedTokenizer, Tokenizer
 from ..tokenize.base import bucket_length
 
@@ -49,8 +57,12 @@ class Embedder:
         tokenizer: Tokenizer | None = None,
         rng_seed: int = 0,
         device=None,
+        mesh=None,
     ):
         self.config = config or EmbedderConfig()
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = pmesh.mesh_device(mesh)
         self.device = default_device(device)
         # no HF tokenizer lookup: that needs transformers (ROADMAP C-7)
         self.tokenizer = tokenizer or HashedTokenizer(
@@ -98,7 +110,11 @@ class Embedder:
 
     # ------------------------------------------------------------- encode
     def _batch_bucket(self, b: int) -> int:
-        return next((x for x in self.config.batch_buckets if b <= x), b)
+        bucket = next((x for x in self.config.batch_buckets if b <= x), b)
+        if self.mesh is not None:
+            bucket = pmesh.pad_to_multiple(
+                bucket, pmesh.axis_size(self.mesh, pmesh.AXIS_DATA))
+        return bucket
 
     def _encode_padded(self, texts: Sequence[str], max_len: int):
         model = self.load()
@@ -124,10 +140,36 @@ class Embedder:
     def _forward(self, model, ids: np.ndarray, lengths: np.ndarray):
         """One encoder forward on `self.device`, named on every tensor:
         the batcher's thread has a current device of its own."""
+        if self.mesh is not None:
+            return self._forward_dp(model, ids, lengths)
         ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int64))
         len_t = torch.from_numpy(np.ascontiguousarray(lengths, np.int32))
         with torch.inference_mode():
             return model(ids_t.to(self.device), len_t.to(self.device))
+
+    def _forward_dp(self, model, ids: np.ndarray, lengths: np.ndarray):
+        """This rank's contiguous block of the batch through the model,
+        then every rank's outputs gathered back in batch order."""
+        data = pmesh.AXIS_DATA
+        lo, hi = pmesh.local_row_range(ids.shape[0], self.mesh, data)
+        ids_t = torch.from_numpy(np.ascontiguousarray(ids[lo:hi], np.int64))
+        len_t = torch.from_numpy(
+            np.ascontiguousarray(lengths[lo:hi], np.int32))
+        group = self.mesh.get_group(data)
+        n = pmesh.axis_size(self.mesh, data)
+
+        def gather(x):
+            if x is None:
+                return None
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x.contiguous(), group=group)
+            return torch.cat(parts)
+
+        with torch.inference_mode():
+            out = model(ids_t.to(self.device), len_t.to(self.device))
+            return M3Output(dense=gather(out.dense),
+                            sparse=gather(out.sparse),
+                            colbert=gather(out.colbert))
 
     def embed(self, texts: Sequence[str], *, return_sparse: bool = False,
               return_colbert: bool = False):

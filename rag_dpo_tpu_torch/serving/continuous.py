@@ -71,6 +71,7 @@ from ..models.generate import (
     mix_seed,
     penalized_rows,
     sampling_logprobs,
+    step_gumbel,
     step_keys,
     step_uniforms,
     topk_topp_sample,
@@ -266,7 +267,9 @@ class ContinuousEngine:
         self._base_seed = int(rng_seed)
         self._carry = DecodeCarry(
             logits=torch.zeros((b, vocab), dtype=logits1.dtype, device=dev),
-            caches=DecoderModel.init_cache(self.cfg, b, device=dev),
+            caches=DecoderModel.init_cache(
+                self.cfg, b, device=dev,
+                kv_heads=generator.load().cache_heads),
             pos=torch.zeros(b, dtype=torch.int64, device=dev),
             done=torch.ones(b, dtype=torch.bool, device=dev),  # slot free
             seeds=torch.zeros(b, dtype=torch.int64, device=dev),
@@ -718,7 +721,8 @@ class ContinuousEngine:
         device entry copies on the card, a host entry (pinned) uploads
         without blocking the host. Rows past the matched prefix are
         causally invisible until the suffix overwrites them."""
-        caches = DecoderModel.init_cache(self.cfg, 1, rows, self.device)
+        caches = DecoderModel.init_cache(self.cfg, 1, rows, self.device,
+                                         self.gen.load().cache_heads)
         n = min(entry["len"], rows)
         saved_kv = entry["kv_host"] if "kv_host" in entry \
             else entry["kv_dev"]
@@ -1580,7 +1584,8 @@ def divergence_gap(generator: TextGenerator, prompt, want, got,
         seq = torch.cat([torch.as_tensor(np.asarray(prompt, np.int64),
                                          device=dev), tail])[None]
         s = seq.shape[1]
-    logits, _ = model(seq, None, DecoderModel.init_cache(cfg, 1, s, dev),
+    logits, _ = model(seq, None, DecoderModel.init_cache(
+        cfg, 1, s, dev, model.cache_heads),
                       kv_len=s, inputs_embeds=embeds)
     score = logits[0, -1].float()
     if temperature > 0:
@@ -1594,7 +1599,7 @@ def divergence_gap(generator: TextGenerator, prompt, want, got,
             keep = (torch.cumsum(probs, dim=-1) - probs < sampling.top_p) \
                 | (torch.arange(kk, device=dev) == 0)
             scaled = torch.where(keep, scaled, -torch.inf)
-        g = -torch.log(-torch.log(step_uniforms(keys, kk)[0]))
+        g = step_gumbel(keys, kk)[0]
         score = torch.full_like(score, -torch.inf).scatter(
             0, idxs, (scaled + g) * temperature)
     stops = (sampling.eos_id, sampling.pad_id)

@@ -166,9 +166,9 @@ def contrastive_loss(model: BgeM3Model, batch: dict, temperature: float):
     dev = next(model.parameters()).device
     b = {k: v.to(dev) for k, v in batch.items()}
 
-    def dense(prefix):
+    def dense(prefix):  # in the encoder's dtype, as JAX's loss takes it
         return model(b[f"{prefix}_ids"], b[f"{prefix}_lengths"],
-                     dense_only=True).dense.float()
+                     dense_only=True).dense
 
     q_emb, p_emb = dense("query"), dense("passage")
     n_emb = n_valid = None

@@ -15,8 +15,9 @@ CPU, against the JAX engine and against the port's own solo runs.
   layout, the int8 cache's entries, warm-up without compiled programs);
   `tests/test_torch_continuous_cases.py` runs the rest of those files'
   engine cases on the port. Sampled requests are held to the port's solo
-  `generate_ids` with the same seed (their draws are the port's own, C-28).
-  Left out: the tensor-parallel case (ROADMAP item 9). The multimodal
+  `generate_ids` with the same seed (the draws are JAX's keys,
+  `tests/test_torch_sampling_keys.py`). The tensor-parallel case runs on
+  gloo ranks in `tests/test_torch_continuous_cases.py`. The multimodal
   prefixes' own cases are in `tests/test_torch_llava.py`.
 """
 

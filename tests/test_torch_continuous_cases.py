@@ -27,8 +27,10 @@ rehearsal's encoders, index, reranker and stack are the port's on the CPU.
 
 Cases not here are in `tests/test_torch_continuous.py` (those whose bodies
 use jax draft sources, compiled-program tables or the JAX prefix-entry
-layout), or wait for the tensor-parallel model (ROADMAP item 9:
-`test_engine_with_tp_sharded_params_matches_solo`).
+layout). `test_engine_with_tp_sharded_params_matches_solo` needs a mesh of
+processes, so its port runs its body's steps on 2 gloo ranks
+(`tests/torch_ranks.py`): the engine over each rank's TP-sharded
+generator, every request against its unsharded solo run.
 """
 
 import dataclasses
@@ -463,3 +465,44 @@ def test_jax_case_on_the_port(on_port, tmp_path, monkeypatch, mod, name,
     finally:
         if "pool" in args:
             pool._driver.close()
+
+
+# ------------------------------------------ the slot pool over TP params
+def _tp_pool_rank(rank, world, params):
+    """`test_continuous.py::test_engine_with_tp_sharded_params_matches_solo`
+    on one rank of a model axis of `world`."""
+    from rag_dpo_tpu_torch.models.generate import SamplingConfig
+    from rag_dpo_tpu_torch.models.generate import TextGenerator
+    from rag_dpo_tpu_torch.models.sharding import shard_params
+    from rag_dpo_tpu_torch.parallel import MeshSpec, create_mesh
+    from rag_dpo_tpu_torch.serving.continuous import ContinuousEngine
+
+    mesh = create_mesh(MeshSpec(data=1, model=world, shard=1),
+                       device_type="cpu")
+    gen_tp = TextGenerator(_TP_CFG, params=shard_params(params, mesh),
+                           device="cpu")
+    rng = np.random.default_rng(50)
+    prompts = [rng.integers(4, _TP_CFG.vocab_size, (n,)).astype(np.int32)
+               for n in (9, 5, 12)]
+    eng = ContinuousEngine(gen_tp, slots=2, sampling=SamplingConfig(
+        temperature=0.0, eos_id=2, pad_id=1), chunk=3)
+    rids = [eng.submit(p, len(p), 8) for p in prompts]
+    results = eng.run()
+    return prompts, [results[r] for r in rids]
+
+
+_TP_CFG = tgenerate.DecoderConfig.tiny(num_heads=4, num_kv_heads=2,
+                                       dtype=torch.float32)
+
+
+def test_engine_with_tp_sharded_params_matches_solo():
+    from test_torch_continuous import solo
+    from test_torch_decoder import jax_params
+    from torch_ranks import run_ranks
+
+    params = jax_params(JDecoderConfig.tiny(num_heads=4, num_kv_heads=2,
+                                            dtype=jnp.float32))
+    gen = tgenerate.TextGenerator(_TP_CFG, params=params, device="cpu")
+    for prompts, tokens in run_ranks(_tp_pool_rank, 2, params):
+        for p, got in zip(prompts, tokens):
+            assert solo(gen, p, 8) == got

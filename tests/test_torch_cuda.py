@@ -1813,3 +1813,147 @@ def test_vision_provider_pool_on_the_card(dev):
         assert lg.cache_stats["hits"] >= 1
     finally:
         llm._driver.close()
+
+
+# ------------------------------------------- the mesh at world size 1
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A (1, 1, 1) mesh over NCCL: the card's process group of one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import torch.distributed as dist
+
+    from rag_dpo_tpu_torch.parallel import MeshSpec, create_mesh
+
+    yield create_mesh(MeshSpec())
+    dist.destroy_process_group()
+
+
+def _mesh_corpus(n=3000, d=64, ell=8):
+    rng = np.random.default_rng(6)
+    dense = rng.standard_normal((n, d)).astype(np.float32)
+    dense /= np.linalg.norm(dense, axis=1, keepdims=True)
+    terms = rng.integers(0, 90, (n, ell)).astype(np.int32)
+    impacts = np.abs(rng.standard_normal((n, ell))).astype(np.float32)
+    metas = [{"nature": ["A", "B", "C"][i % 3]} for i in range(n)]
+    return dense, terms, impacts, metas
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(quantize_int8=True),
+                                dict(quantize_int8=True, device_refine=True),
+                                dict(postings_threshold=64)],
+                         ids=["bf16", "int8", "int8-refine", "postings"])
+def test_sharded_store_on_the_card_matches_the_cpu(dev, nccl_mesh, kw):
+    """The row-sharded store at world size 1 (NCCL) on the card: the
+    unsharded store's ids on the CPU, scores within 1e-5; K4 launches for
+    the bf16 dense arm."""
+    from rag_dpo_tpu_torch.index import DeviceIndex, IndexConfig
+
+    dense, terms, impacts, metas = _mesh_corpus()
+    ids = [f"c{i}" for i in range(len(dense))]
+    cfg = IndexConfig(dim=64, ell_width=8, row_block=256, **kw)
+    card = DeviceIndex(cfg, mesh=nccl_mesh)
+    cpu = DeviceIndex(cfg, device="cpu")
+    for idx in (card, cpu):
+        idx.add(ids, dense, metas, terms, impacts)
+        idx.delete(ids[5:9])
+    assert card.device_image()["embs" if not kw.get("quantize_int8")
+                               else "embs_i8"].is_cuda
+    q = dense[[3, 700, 2999]]
+    qt = np.random.default_rng(1).integers(0, 90, (3, 6)).astype(np.int32)
+    qw = np.ones((3, 6), np.float32)
+    before = _kernels.LAUNCHES["fused_topk"]
+    for search in (lambda i: i.search_dense(q, 10),
+                   lambda i: i.search_dense(q, 10, where={"nature": "B"}),
+                   lambda i: i.search_sparse(qt, qw, 10)):
+        (gs, gi), (cs, ci) = search(card), search(cpu)
+        np.testing.assert_array_equal(gi, ci)
+        np.testing.assert_allclose(gs, cs, atol=1e-5, rtol=0)
+    if not kw.get("quantize_int8"):
+        assert _kernels.LAUNCHES["fused_topk"] >= before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_on_the_card_matches_the_cpu_ring(dev, nccl_mesh, dtype):
+    """4 logical shards by K1 + the lse merge on the card against JAX's
+    online softmax on the CPU (a length-0 row: the mean of the values);
+    the NCCL ring of one equals one K1 call."""
+    from rag_dpo_tpu_torch.ops.flash_attention import flash_attention
+    from rag_dpo_tpu_torch.ops.ring_attention import (
+        make_ring_attention,
+        ring_attention_blocks,
+    )
+
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (3, 2, 512, 64)).astype(np.float32)).to(dtype) for _ in range(3))
+    lens = torch.tensor([512, 300, 0])
+    want = ring_attention_blocks(q, k, v, lens, 4).float()
+    before = _kernels.LAUNCHES["flash_fwd"]
+    got = ring_attention_blocks(q.to(dev), k.to(dev), v.to(dev),
+                                lens.to(dev), 4).float().cpu()
+    assert _kernels.LAUNCHES["flash_fwd"] == before + 16
+    torch.testing.assert_close(got, want, atol=FWD_TOL[dtype], rtol=0)
+    full = torch.tensor([512, 300, 17], device=dev)
+    one = make_ring_attention(nccl_mesh)(q.to(dev), k.to(dev), v.to(dev),
+                                         full)
+    ref = flash_attention(q.to(dev), k.to(dev), v.to(dev), full)
+    torch.testing.assert_close(one.float(), ref.float(),
+                               atol=FWD_TOL[dtype], rtol=0)
+
+
+def test_dp_embedder_and_tp_decoder_at_world_one(dev, nccl_mesh):
+    """`Embedder(mesh=)` gives the plain embedder's vectors on the card
+    within 1e-5; a TP decoder of one (`shard_params`) the unsharded
+    greedy tokens."""
+    from rag_dpo_tpu_torch.models.convert import state_dict_to_flax
+    from rag_dpo_tpu_torch.models.decoder import (
+        DecoderConfig,
+        decoder_flax_tree,
+    )
+    from rag_dpo_tpu_torch.models.generate import (
+        SamplingConfig,
+        TextGenerator,
+    )
+    from rag_dpo_tpu_torch.models.sharding import shard_params
+    from rag_dpo_tpu_torch.providers import Embedder
+
+    plain = Embedder(device=dev)
+    dp = Embedder(params=state_dict_to_flax(plain.load()), mesh=nccl_mesh)
+    texts = [f"la donnée {i} du registre des traitements" for i in range(9)]
+    np.testing.assert_allclose(dp.embed(texts)["dense"],
+                               plain.embed(texts)["dense"], atol=1e-5)
+    cfg = DecoderConfig.tiny(num_heads=4, num_kv_heads=2)
+    gen = TextGenerator(cfg, device=dev)
+    tp = TextGenerator(cfg, params=shard_params(
+        decoder_flax_tree(gen.load()), nccl_mesh))
+    ids = np.random.default_rng(2).integers(3, 512, (2, 9)).astype(np.int32)
+    lens = np.asarray([9, 6], np.int32)
+    s = SamplingConfig(temperature=0.0, max_new_tokens=8, eos_id=-1)
+    np.testing.assert_array_equal(tp.generate_ids(ids, lens, s),
+                                  gen.generate_ids(ids, lens, s))
+
+
+def test_bf16_encoder_on_the_card_matches_the_cpu(dev):
+    """`EncoderConfig.dtype=torch.bfloat16` on the card (bf16 K1 and
+    GEMMs) against the bf16 model on the CPU, within 2e-2 (C-5)."""
+    from rag_dpo_tpu_torch.models import BgeM3Config, EncoderConfig
+    from rag_dpo_tpu_torch.models.bge_m3 import build_bge_m3
+
+    cfg = BgeM3Config(encoder=EncoderConfig.tiny(dtype=torch.bfloat16),
+                      colbert_dim=32)
+    cpu = build_bge_m3(cfg, device="cpu").eval()
+    card = build_bge_m3(cfg, device=dev).eval()
+    card.load_state_dict(cpu.state_dict())
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        4, 1024, (3, 40))).long()
+    lens = torch.tensor([40, 17, 5])
+    before = _kernels.LAUNCHES["flash_fwd"]
+    with torch.no_grad():
+        want, got = cpu(ids, lens), card(ids.to(dev), lens.to(dev))
+    assert _kernels.LAUNCHES["flash_fwd"] > before
+    assert got.dense.dtype == torch.bfloat16
+    for a, b in ((got.dense, want.dense), (got.sparse, want.sparse),
+                 (got.colbert, want.colbert)):
+        torch.testing.assert_close(a.float().cpu(), b.float(), atol=2e-2,
+                                   rtol=0)

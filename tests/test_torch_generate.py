@@ -5,12 +5,12 @@
   (1e-6, or bit for bit where the arithmetic is integer);
 * `score_choices` on JAX-exported weights within `SCORE_TOL` of JAX's
   (f32; a sum of ≤ 6 log-probs over a 512-token vocabulary);
-* sampling: the draws are the port's own position-keyed hash, not
-  threefry (ROADMAP C-28), so they are held to the distribution they
-  sample (total variation against the numpy oracle of the kept set) and
-  to `tests/test_seeds.py`'s properties (a stream is a pure function of
-  its row seed and positions: any chunking, any batch composition;
-  co-batched identical prompts differ);
+* sampling: the draws are JAX's threefry keys (held bit for bit to
+  `jax.random` in `tests/test_torch_sampling_keys.py`); here they are held
+  to the distribution they sample (total variation against the numpy
+  oracle of the kept set) and to `tests/test_seeds.py`'s properties (a
+  stream is a pure function of its row seed and positions: any chunking,
+  any batch composition; co-batched identical prompts differ);
 * speculative decoding: `tests/test_speculative.py`'s direct-path cases,
   bit-equal to plain greedy.
 """

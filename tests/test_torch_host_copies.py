@@ -36,6 +36,7 @@ COPIES = [
     "ingest/tagging.py",
     "index/metadata.py",
     "models/__init__.py",
+    "parallel/__init__.py",
     "retrieval/types.py",
     "rag/__init__.py",
     "rag/acronyms.py",

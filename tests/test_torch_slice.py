@@ -4,8 +4,9 @@ path, slice 2's train step, checkpoint and npz export, slice 3's MaxSim
 rerank and hermetic replay module, slice 4's int8 and postings searches,
 slice 14's corpus-build modules, with bs4 and lxml refused too, as the
 card's machine has neither, slice 15's HF conversion and demo server,
-with transformers and safetensors refused, and slice 18's image request
-through a tiny `attach_vision` on the continuous pool).
+with transformers and safetensors refused, slice 18's image request
+through a tiny `attach_vision` on the continuous pool, and slice 19's mesh
+modules: a gloo world of one through a row-sharded store).
 
 Both stacks use the same exported Flax parameters (tiny encoder in
 reference-attention mode and ELL width 48, as `evals/hermetic.py` builds
@@ -419,6 +420,20 @@ BLOCKED_RUN = textwrap.dedent("""
     # random weights cite no source: the answer stands ungrounded
     assert tresp.answer and tresp.error is None, tresp
     assert tresp.n_candidates > 0 and tresp.generation_time > 0, tresp
+    # the mesh modules, and a world of one through the sharded store
+    from rag_dpo_tpu_torch.index import DeviceIndex
+    from rag_dpo_tpu_torch.models.sharding import shard_params  # noqa
+    from rag_dpo_tpu_torch.ops.ring_attention import make_ring_attention
+    from rag_dpo_tpu_torch.parallel import MeshSpec, create_mesh
+    mesh = create_mesh(MeshSpec(shard=1), device_type="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        index.save(tmp)
+        sharded = DeviceIndex.load(tmp, mesh=mesh)
+    q = index.dense_vectors([3, 9])
+    assert (sharded.search_dense(q, 5)[1]
+            == index.search_dense(q, 5)[1]).all()
+    assert sharded.search_dense(q, 5)[1][0, 0] == 3
+    assert make_ring_attention(mesh)
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
