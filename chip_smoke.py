@@ -227,10 +227,23 @@ Phases, in order; any failure exits non-zero before the result lines:
    then 1 warm-up and 8 timed steps on one repeated batch, whose losses
    must be finite and fall. The flash forward and both backward kernels
    must launch, and no plain twin may run on the card.
+9b. train, mesh — `make_sharded_train_step` at that width, 2 steps on
+   one batch of 16 pairs x 192 tokens with hard negatives (lr 1e-4, no
+   warmup), held to 2 steps of `make_train_step` from the same seeded
+   weights (losses within rtol 1e-5; the last gradients within 1e-4 by
+   norm; all but 1e-4 of the parameter elements within 1% of Σ lr + 1e-5
+   relative, the key bias within Σ lr): (a) NCCL at world size 1 on
+   phase 6h's group, `create_mesh(MeshSpec(data=1))`; (b) two ranks on
+   the one card over gloo on CUDA tensors, spawned once, data=2 (global
+   in-batch negatives) and model=2 (TP, 8 heads a rank), both ranks'
+   parameters gathered whole. K1, K8 and K9 must launch in every rank and
+   no twin may run; the step times are printed, the gloo ones marked as
+   going through the host (not a multi-card number).
 
 The second-to-last line is a JSON object with each kernel's launches in
 the phase of the main path that runs it (serve for the ELL kernel, MaxSim
-serve for K7, train for the flash kernels, scale for K4, and for K5, K6,
+serve for K7, train for the flash kernels (with phase 9b's counts rank by
+rank), scale for K4, and for K5, K6,
 K10 and K11 their own paths: no store path calls them, as in the JAX
 package; K1, K3 and K4 also with the agent's, the concurrent phase's,
 the HTTP phase's, the continuous pool's, the vision phase's and the mesh
@@ -337,6 +350,20 @@ VISION_NEW_TOKENS, VISION_BESIDE = 32, 8
 VISION_TOL, VISION_BF16_ULPS = 1e-4, 8
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_PAIRS, TRAIN_SEQ, TIMED_STEPS = 16, 192, 8
+# phase 9b: the sharded step's steps, its learning rate from the first step
+# (the parameters move by ~1e-4 a step, so the Σ lr rule has something to
+# hold and the second loss sees the first update), the two-rank layouts
+# over gloo
+MESH_TRAIN_STEPS, MESH_TRAIN_LR = 2, 1e-4
+MESH_TRAIN_LAYOUTS = (("data2", {"data": 2}), ("model2", {"model": 2}))
+MESH_TRAIN_DEADLINE_S = 420   # the two ranks, killed past it (a hang)
+# phase 9b's gates against the one-rank step: the gradients' relative
+# distance (f32, the same kernels, only sum orders differ: 5.1e-6 at
+# data=2, 2.3e-5 at model=2, where every row product's sum is split) and
+# the share of parameter elements past the Σ lr rule (`state_gap`): 2.6e-7
+# and 1.05e-5 measured; a fault in a reduction or a slice sends ~half of
+# the elements the wrong way
+MESH_GRAD_TOL, MESH_PARAM_SHARE = 1e-4, 1e-4
 # H100 SXM data sheet, at 700 W: f32 FLOP/s outside the tensor cores, the
 # TF32 tensor cores' dense rate (f32 attention at f32 accuracy takes three
 # TF32 products, 3xTF32, as the bound's basis), the bf16 tensor cores' rate
@@ -2517,7 +2544,8 @@ def serve_mesh(stack, questions, dev, seed: int) -> dict:
                     "blocks_ms": cuda_ms(lambda: ring_attention_blocks(
                         *qkv, lens_r, MESH_SHARDS), iters=10),
                     "one_k1_ms": cuda_ms(lambda: flash_attention(
-                        *qkv, lens_r), iters=10)}
+                        *qkv, lens_r), iters=10),
+                    **flash_fwd_bound(qkv[0], lens_r)}
         del qkv, blocks, one
     out["ring"] = ring
     log(f"mesh (b): {MESH_SHARDS} logical shards {out['logical_shards']}; "
@@ -2566,7 +2594,7 @@ def serve_mesh(stack, questions, dev, seed: int) -> dict:
     del e16, r16
     gc.collect()
     torch.cuda.empty_cache()
-    torch.distributed.destroy_process_group()
+    # the NCCL group of one stays up for phase 9b (a), which destroys it
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"mesh phase: {out['phase_s']:.1f} s")
     return out
@@ -4987,17 +5015,28 @@ def run_hermetic(dev) -> dict:
     return out
 
 
+@functools.lru_cache(maxsize=1)
+def train_pairs() -> tuple:
+    """The recipe's training pairs over the synthetic corpus and a mined
+    hard negative for each (phases 9 and 9b)."""
+    from rag_dpo_tpu_torch.evals.synthetic import build_synthetic_corpus
+    from rag_dpo_tpu_torch.evals.train_encoder import (
+        build_training_pairs,
+        mine_hard_negatives,
+    )
+
+    chunks = build_synthetic_corpus(
+        json.loads(QA_DATASET.read_text(encoding="utf-8")))
+    pairs, groups = build_training_pairs(chunks, return_groups=True)
+    return pairs, mine_hard_negatives(pairs, groups, chunks)
+
+
 def run_train(seed: int, dev) -> dict:
     """Train phase: the full-width BGE-M3 through `train_retriever`, a
     resume from its checkpoint, then timed steps on one repeated batch."""
     import numpy as np
     import torch
 
-    from rag_dpo_tpu_torch.evals.synthetic import build_synthetic_corpus
-    from rag_dpo_tpu_torch.evals.train_encoder import (
-        build_training_pairs,
-        mine_hard_negatives,
-    )
     from rag_dpo_tpu_torch.models import BgeM3Config, EncoderConfig
     from rag_dpo_tpu_torch.ops import _kernels
     from rag_dpo_tpu_torch.tokenize import HashedTokenizer
@@ -5009,10 +5048,7 @@ def run_train(seed: int, dev) -> dict:
         train_retriever,
     )
 
-    chunks = build_synthetic_corpus(
-        json.loads(QA_DATASET.read_text(encoding="utf-8")))
-    pairs, groups = build_training_pairs(chunks, return_groups=True)
-    negatives = mine_hard_negatives(pairs, groups, chunks)
+    pairs, negatives = train_pairs()
     cfg = TrainConfig(model=BgeM3Config(encoder=EncoderConfig.bge_m3()),
                       warmup_steps=10)
     check(cfg.model.encoder.use_flash_attention, "flash is off")
@@ -5096,6 +5132,281 @@ def run_train(seed: int, dev) -> dict:
             "train_peak_memory_gb": peak_gb,
             "train_losses": losses,
             "train_device_busy_share": busy}
+
+
+def mesh_train_config():
+    """Phase 9b's config: phase 9's full-width BGE-M3 (f32, flash on) at
+    `MESH_TRAIN_LR` from the first step (no warmup), so the second step's
+    loss already shows the first update."""
+    from rag_dpo_tpu_torch.models import BgeM3Config, EncoderConfig
+    from rag_dpo_tpu_torch.train import TrainConfig
+
+    return TrainConfig(model=BgeM3Config(encoder=EncoderConfig.bge_m3()),
+                       learning_rate=MESH_TRAIN_LR, warmup_steps=0)
+
+
+def state_gap(params: dict, grads: dict, ref: dict) -> dict:
+    """A sharded run's whole parameters and last gradients against the
+    one-rank step's (`ref`: {"params", "grads"}, name → tensor).
+
+    * gradients: ‖g − g_ref‖ / ‖g_ref‖ over the whole tree (the data sum,
+      the TP reductions and the global negatives all show here; only sum
+      orders differ);
+    * parameters: `tests/test_torch_train.py`'s tolerance, |p − p_ref| ≤
+      1% of Σ lr + 1e-5·|p_ref| (Σ lr for the key bias, whose gradient is
+      0 in exact arithmetic): the worst element's share of it, and how
+      many elements are past it. Adam moves an element by ~±lr whatever its
+      gradient's size, so an element whose gradient nearly cancels (about
+      one in 10^5 at this width under TP) takes its sign from rounding."""
+    import torch
+
+    from rag_dpo_tpu_torch.train.contrastive import learning_rate_at
+
+    cfg = mesh_train_config()
+    lr_sum = sum(learning_rate_at(cfg, c) for c in range(MESH_TRAIN_STEPS))
+    worst, where, beyond, total = 0.0, None, 0, 0
+    diff_sq = ref_sq = 0.0
+    with torch.no_grad():
+        for name, value in params.items():
+            want = ref["params"][name].to(value.device)
+            diff = (value - want).abs()
+            tol = (torch.full_like(want, lr_sum) if name.endswith("key.bias")
+                   else 0.01 * lr_sum + 1e-5 * want.abs())
+            share = diff / tol
+            beyond += int((share > 1).sum())
+            total += share.numel()
+            if float(share.max()) > worst:
+                worst, where = float(share.max()), name
+            g, g_ref = grads[name], ref["grads"][name].to(value.device)
+            diff_sq += float(((g - g_ref).double() ** 2).sum())
+            ref_sq += float((g_ref.double() ** 2).sum())
+    return {"grad_rel_err": (diff_sq / ref_sq) ** 0.5,
+            "param_tolerance_share": worst, "worst_param": where,
+            "params_beyond_tolerance": beyond, "param_elements": total,
+            "lr_sum": lr_sum}
+
+
+def _grads(model) -> dict:
+    import torch
+
+    return {n: p.grad if p.grad is not None else torch.zeros_like(p)
+            for n, p in model.named_parameters()}
+
+
+def mesh_train_steps(step, state, batch) -> tuple:
+    """`MESH_TRAIN_STEPS` steps: (state, losses, accuracies, seconds a
+    step by the host clock around a synchronised step)."""
+    import torch
+
+    losses, accs, secs = [], [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        accs.append(float(m["accuracy"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return state, losses, accs, secs
+
+
+def _train_mesh_rank(rank: int, world: int, port: int, seed: int,
+                     batch: dict, ref: dict, out_dir: str) -> None:
+    """Phase 9b (b), one of two ranks on the one card over gloo: every
+    layout of `MESH_TRAIN_LAYOUTS` from the seeded weights, its steps
+    timed, its launches counted from 0, its parameters and gradients
+    gathered whole and held (by the first rank) to the one-rank step's
+    (`ref`, the parent's tensors)."""
+    import torch
+    import torch.distributed as dist
+
+    from rag_dpo_tpu_torch.models.sharding import gather_state
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.parallel import (
+        MeshSpec,
+        create_mesh,
+        initialize_multihost,
+    )
+    from rag_dpo_tpu_torch.train import (
+        create_train_state,
+        make_sharded_train_step,
+    )
+
+    from rag_dpo_tpu_torch.parallel.mesh import mesh_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    cfg = mesh_train_config()
+    ref = ref if rank == 0 else None
+    out = {}
+    for label, spec in MESH_TRAIN_LAYOUTS:
+        mesh = create_mesh(MeshSpec(**spec))
+        dev = mesh_device(mesh)
+        step, state = make_sharded_train_step(
+            cfg, mesh, create_train_state(cfg, rng_seed=seed, device=dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+        _kernels.reset_counts()
+        state, losses, accs, secs = mesh_train_steps(step, state, batch)
+        res = {"losses": losses, "accuracies": accs, "step_s": secs,
+               "launches": {n: _kernels.LAUNCHES[n] for n in TRAIN_KERNELS},
+               "plain_on_cuda": dict(_kernels.PLAIN_ON_CUDA),
+               "query_rows": state.model.encoder.layer_0.attention.query
+               .weight.shape[0],
+               "heads": state.model.encoder.layer_0.attention.heads,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        whole = gather_state(dict(state.model.named_parameters()),
+                             state.model.tp)
+        grads = gather_state(_grads(state.model), state.model.tp)
+        if rank == 0:
+            res.update(state_gap(whole, grads, ref))
+        out[label] = res
+        del step, state, whole, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def run_train_mesh(seed: int, dev) -> dict:
+    """Phase 9b: `make_sharded_train_step` at full width, held to 2 steps
+    of `make_train_step` (the one-rank step) from the same seeded weights
+    on one global batch of TRAIN_PAIRS pairs x TRAIN_SEQ tokens with mined
+    hard negatives. (a) NCCL at world size 1 on phase 6h's group (then
+    destroyed), `create_mesh(MeshSpec(data=1))`, in this process; (b) two
+    ranks on the one card over gloo on CUDA tensors (NCCL cannot put two
+    ranks on a card), spawned once: data=2 (global negatives) and model=2
+    (TP, 8 heads a rank). Losses within rtol 1e-5, gradients and
+    parameters by `state_gap`; K1, K8 and K9 launch in every rank and no twin runs. The
+    gloo step times go through the host: not a multi-card number."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.parallel import (
+        MeshSpec,
+        create_mesh,
+        initialize_multihost,
+    )
+    from rag_dpo_tpu_torch.parallel.mesh import free_port
+    from rag_dpo_tpu_torch.tokenize import HashedTokenizer
+    from rag_dpo_tpu_torch.train import (
+        create_train_state,
+        make_sharded_train_step,
+        make_train_step,
+    )
+    from rag_dpo_tpu_torch.train.loop import PairBatcher
+
+    t_phase = time.perf_counter()
+    cfg = mesh_train_config()
+    pairs, negatives = train_pairs()
+    batch = PairBatcher(pairs, HashedTokenizer(cfg.model.encoder.vocab_size),
+                        TRAIN_PAIRS, TRAIN_SEQ, seed,
+                        negatives=negatives).batch_at(0)
+    check(bool(batch["negative_valid"].any()), "9b: no hard negative")
+    out: dict = {}
+
+    # the one-rank step: the reference of (a) and (b)
+    state = create_train_state(cfg, rng_seed=seed, device=dev)
+    state, ref_losses, ref_accs, ref_s = mesh_train_steps(
+        make_train_step(cfg, state), state, batch)
+    ref = {"params": {k: v.detach().clone()
+                      for k, v in state.model.named_parameters()},
+           "grads": {k: v.clone() for k, v in _grads(state.model).items()}}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["one_rank"] = {"losses": ref_losses, "accuracies": ref_accs,
+                       "step_s": ref_s}
+
+    # (a) NCCL, world size 1
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0)  # 6h's, if up
+    mesh = create_mesh(MeshSpec(data=1))
+    check(dist.get_backend() == "nccl", f"9b (a) on {dist.get_backend()}")
+    _kernels.reset_counts()
+    step, state = make_sharded_train_step(
+        cfg, mesh, create_train_state(cfg, rng_seed=seed, device=dev))
+    state, losses, accs, secs = mesh_train_steps(step, state, batch)
+    res = {"losses": losses, "accuracies": accs, "step_s": secs,
+           "launches": {n: _kernels.LAUNCHES[n] for n in TRAIN_KERNELS},
+           "plain_on_cuda": dict(_kernels.PLAIN_ON_CUDA),
+           **state_gap(dict(state.model.named_parameters()),
+                       _grads(state.model), ref)}
+    out["nccl_world1"] = res
+    del step, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    log(f"train mesh (a) NCCL world 1: {json.dumps(res)}")
+
+    # (b) two gloo ranks on the one card; the reference reaches them as
+    # CUDA IPC handles of this process's tensors (no copy)
+    with tempfile.TemporaryDirectory(prefix="ragdpo_mesh_train_") as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            _train_mesh_rank,
+            args=(2, free_port(), seed,
+                  {k: v.numpy() for k, v in batch.items()}, ref, tmp),
+            nprocs=2, join=False, start_method="spawn")
+        while not ctx.join(timeout=1.0):   # a rank that raised re-raises
+            if time.perf_counter() - t0 > MESH_TRAIN_DEADLINE_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                check(False, f"9b (b): the ranks ran past "
+                      f"{MESH_TRAIN_DEADLINE_S} s")
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads((pathlib.Path(tmp) / f"rank{r}.json")
+                            .read_text()) for r in range(2)]
+    del ref
+    gc.collect()
+    torch.cuda.ipc_collect()       # the ranks' handles of the reference
+    torch.cuda.empty_cache()
+    for label, spec in MESH_TRAIN_LAYOUTS:
+        out[f"gloo_{label}"] = {
+            "ranks": [r[label] for r in ranks],
+            **{k: v for k, v in ranks[0][label].items()
+               if k in ("grad_rel_err", "param_tolerance_share",
+                        "worst_param", "params_beyond_tolerance",
+                        "param_elements")}}
+        log(f"train mesh (b) gloo {label}, 2 ranks on one card (step times "
+            f"through the host, not a multi-card number): "
+            f"{json.dumps(out[f'gloo_{label}'])}")
+    out["gloo_spawn_s"] = spawn_s
+
+    for label in ("nccl_world1", *(f"gloo_{n}" for n, _ in
+                                   MESH_TRAIN_LAYOUTS)):
+        runs = out[label].get("ranks", [out[label]])
+        for r, run in enumerate(runs):
+            check(np.allclose(run["losses"], ref_losses, rtol=1e-5, atol=0),
+                  f"9b {label} rank {r}: losses {run['losses']} vs the "
+                  f"one-rank step's {ref_losses}")
+            for name in TRAIN_KERNELS:
+                check(run["launches"][name] > 0,
+                      f"9b {label} rank {r}: {name} never launched")
+            check(not any(run["plain_on_cuda"].values()),
+                  f"9b {label} rank {r}: a twin ran: "
+                  f"{run['plain_on_cuda']}")
+        gap = out[label]
+        check(gap["grad_rel_err"] <= MESH_GRAD_TOL,
+              f"9b {label}: gradients {gap['grad_rel_err']:.3g} from the "
+              f"one-rank step's")
+        check(gap["params_beyond_tolerance"]
+              <= MESH_PARAM_SHARE * gap["param_elements"],
+              f"9b {label}: {gap['params_beyond_tolerance']} of "
+              f"{gap['param_elements']} parameters past the Σ lr rule "
+              f"(worst {gap['worst_param']}, "
+              f"{gap['param_tolerance_share']:.3g} of its tolerance)")
+    model2 = out["gloo_model2"]["ranks"]
+    check(all(r["query_rows"] == 512 and r["heads"] == 8 for r in model2),
+          f"9b model=2 is not split: {model2}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"train mesh phase: {out['phase_s']:.1f} s (the two ranks "
+        f"{spawn_s:.1f} s with their start); one-rank step "
+        + ", ".join(f"{x:.3f}" for x in ref_s) + " s")
+    return out
 
 
 def kernel_name(mangled: str) -> str:
@@ -5264,6 +5575,18 @@ def main() -> int:
     for name in TRAIN_KERNELS:
         check(train["launches"][name] > 0, f"{name} never launched")
         check(train["plain_on_cuda"][name] == 0, f"{name} ran plain")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_mesh = run_train_mesh(args.seed, dev)
+    # phase 9b's launches of K1, K8 and K9 (rank by rank over gloo)
+    mesh_train_launches = {
+        name: {"mesh_train_nccl_launches":
+               train_mesh["nccl_world1"]["launches"][name],
+               **{f"mesh_train_gloo_{label}_launches":
+                  [r["launches"][name]
+                   for r in train_mesh[f"gloo_{label}"]["ranks"]]
+                  for label, _ in MESH_TRAIN_LAYOUTS}}
+        for name in TRAIN_KERNELS}
 
     # the agent's and the concurrent phase's launches of the serve kernels
     serve_phase_launches = {
@@ -5294,6 +5617,7 @@ def main() -> int:
          "instructions": "mma.sync m16n8k8 tf32 (f32: 3xTF32) + m16n8k16 "
                          "bf16 (bf16 inputs)",
          "launches": train["launches"]["flash_fwd"],
+         **mesh_train_launches["flash_fwd"],
          "serve_launches": path["launches"]["flash_fwd"],
          **serve_phase_launches["flash_fwd"],
          **ingest_launches["flash_fwd"],
@@ -5309,11 +5633,13 @@ def main() -> int:
          "replaces": "rag_dpo_tpu/ops/flash_attention_bwd.py:81",
          "instructions": bwd_mma,
          "launches": train["launches"]["flash_bwd_dq"],
+         **mesh_train_launches["flash_bwd_dq"],
          **flash_bwd["flash_bwd_dq"]},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": bwd_src,
          "replaces": "rag_dpo_tpu/ops/flash_attention_bwd.py:123",
          "instructions": bwd_mma,
          "launches": train["launches"]["flash_bwd_dkv"],
+         **mesh_train_launches["flash_bwd_dkv"],
          **flash_bwd["flash_bwd_dkv"]},
         {"name": "maxsim", "route": "cuda",
          "source": "rag_dpo_tpu_torch/csrc/maxsim.cu",
@@ -5400,7 +5726,12 @@ def main() -> int:
                     "hermetic_trained": hermetic["none"]["gated"],
                     "hermetic_trained_maxsim": hermetic["maxsim"]["gated"],
                     **{k: v for k, v in train.items()
-                       if k.startswith("train_")}}))
+                       if k.startswith("train_")},
+                    "train_mesh": {
+                        k: ({kk: vv for kk, vv in v.items()
+                             if kk not in ("launches", "plain_on_cuda")}
+                            if isinstance(v, dict) else v)
+                        for k, v in train_mesh.items()}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

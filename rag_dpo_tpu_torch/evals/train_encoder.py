@@ -5,10 +5,10 @@ Port of `rag_dpo_tpu/evals/train_encoder.py`. `family_key`,
 unchanged (training queries come from document content only: titles,
 keyword footers and body-sentence term subsets; the 48 eval questions never
 appear in training). `train_eval_encoder` runs the reference's recipe on a
-torch device — the tiny BGE-M3-style encoder with reference attention,
-in-batch InfoNCE with mined hard negatives — and saves the checkpoint
-through `models.convert.save_params_npz`, the npz format both packages'
-`bootstrap.build_stack` and `load_params_npz` read.
+torch device or a mesh — the tiny BGE-M3-style encoder with reference
+attention, in-batch InfoNCE with mined hard negatives — and saves the
+checkpoint through `models.convert.save_params_npz`, the npz format both
+packages' `bootstrap.build_stack` and `load_params_npz` read.
 """
 
 from __future__ import annotations
@@ -128,21 +128,53 @@ def mine_hard_negatives(pairs: list[tuple[str, str]],
     return negatives
 
 
+def _shared_tmpdir(mesh):
+    """A temporary directory every rank of `mesh` names (the first rank's,
+    its path broadcast), removed by the first rank once all are done;
+    without a mesh, a plain one."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    if mesh is None:
+        return tempfile.TemporaryDirectory()
+    import torch.distributed as dist
+
+    @contextlib.contextmanager
+    def shared():
+        first = dist.get_rank() == 0
+        name = [tempfile.mkdtemp() if first else None]
+        dist.broadcast_object_list(name, src=0)
+        try:
+            yield name[0]
+        finally:
+            dist.barrier()
+            if first:
+                shutil.rmtree(name[0], ignore_errors=True)
+
+    return shared()
+
+
 def train_eval_encoder(out_npz, steps: int = 800, batch_size: int = 32,
                        seq_len: int = 96, learning_rate: float = 3e-4,
                        log_every: int = 50, hard_negatives: bool = True,
                        grouped: bool = False, device=None,
-                       dataset_path=QA_DATASET) -> dict:
+                       dataset_path=QA_DATASET, mesh=None) -> dict:
     """Train on the v2 corpus and save the checkpoint to `out_npz` in the
     shared npz format. → {"loss_first", "loss_last", "n_pairs", ...}.
 
     The reference writes its committed checkpoint by default; the port
-    takes the path, so a run never overwrites that record."""
+    takes the path, so a run never overwrites that record. `mesh`: a
+    `DeviceMesh` to train on (every rank calls this), as the reference's
+    `create_mesh()`; else `device`. On a mesh the first rank writes the
+    npz (the model gathered whole) and every rank returns its numbers."""
     import json
-    import tempfile
+
+    import torch.distributed as dist
 
     from ..models import BgeM3Config, EncoderConfig
-    from ..models.convert import save_params_npz, state_dict_to_flax
+    from ..models.bge_m3 import full_flax_tree
+    from ..models.convert import save_params_npz
     from ..train.contrastive import TrainConfig
     from ..train.loop import LoopConfig, train_retriever
     from .synthetic import build_synthetic_corpus
@@ -161,10 +193,11 @@ def train_eval_encoder(out_npz, steps: int = 800, batch_size: int = 32,
     train_cfg = TrainConfig(model=model_cfg,
                             learning_rate=learning_rate,
                             warmup_steps=max(20, steps // 10))
-    with tempfile.TemporaryDirectory() as tmp:
+    with _shared_tmpdir(mesh) as tmp:
         metrics_path = pathlib.Path(tmp) / "metrics.jsonl"
         state = train_retriever(
-            pairs, train_cfg, device, pathlib.Path(tmp) / "ckpt",
+            pairs, train_cfg, device if mesh is None else mesh,
+            pathlib.Path(tmp) / "ckpt",
             loop_config=LoopConfig(batch_size=batch_size,
                                    max_steps=steps, seq_len=seq_len,
                                    checkpoint_every=steps,
@@ -173,11 +206,15 @@ def train_eval_encoder(out_npz, steps: int = 800, batch_size: int = 32,
             groups=groups if grouped else None,
             negatives=negatives,
         )
+        tree = full_flax_tree(state.model)
+        if mesh is not None:
+            dist.barrier()            # the first rank's metrics are written
         lines = [json.loads(ln) for ln in
                  metrics_path.read_text().splitlines()]
     out_npz = pathlib.Path(out_npz)
-    out_npz.parent.mkdir(parents=True, exist_ok=True)
-    save_params_npz(state_dict_to_flax(state.model), out_npz)
+    if mesh is None or dist.get_rank() == 0:
+        out_npz.parent.mkdir(parents=True, exist_ok=True)
+        save_params_npz(tree, out_npz)
     return {
         "n_pairs": len(pairs),
         "n_hard_negatives": (sum(x is not None for x in negatives)

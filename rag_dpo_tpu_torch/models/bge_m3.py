@@ -9,6 +9,12 @@ Port of `rag_dpo_tpu/models/bge_m3.py`: one forward yields
 `dense_only=True` runs the encoder and the dense head alone, as the JAX
 training step's dense-only model does (`train/contrastive.py:141-148`):
 the module keeps its sparse and ColBERT heads, so a checkpoint saves them.
+
+Tensor parallelism: `build_bge_m3(config, params=shard_params(tree,
+mesh))` builds the encoder from this rank's Megatron slices
+(`models/encoder.py`); the embeddings, LayerNorms and the three heads stay
+whole, as JAX's rules leave them. `full_flax_tree` gathers a rank's model
+back into the whole Flax tree over the model axis.
 """
 
 from __future__ import annotations
@@ -20,8 +26,9 @@ import torch
 from torch import nn
 
 from ..ops import default_device
-from .convert import load_flax_params
+from .convert import load_flax_params, state_dict_to_flax
 from .encoder import Dense, EncoderConfig, TransformerEncoder, init_random_
+from .sharding import ShardedParams, gather_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,11 +57,14 @@ def _l2norm(x, dim=-1, eps=1e-12):
 
 
 class BgeM3Model(nn.Module):
-    def __init__(self, config: BgeM3Config):
+    """`tp`: this rank's `models.sharding.TensorParallel`, or None."""
+
+    def __init__(self, config: BgeM3Config, tp=None):
         super().__init__()
         self.config = config
+        self.tp = tp if tp is not None and tp.size > 1 else None
         h = config.encoder.hidden_size
-        self.encoder = TransformerEncoder(config.encoder)
+        self.encoder = TransformerEncoder(config.encoder, self.tp)
         dt = config.encoder.dtype
         if config.with_sparse:
             self.sparse_head = Dense(h, 1, dt)
@@ -88,7 +98,14 @@ def build_bge_m3(config: BgeM3Config, params=None, rng_seed: int = 0,
     """A `BgeM3Model` on `device` (the card unless given; without a card
     `device="cpu"` must be asked for): the given Flax tree (numpy leaves,
     e.g. `load_params_npz`), else seeded random weights made on the
-    device."""
+    device. A `ShardedParams` tree builds the TP model of its rank, on the
+    rank's device unless `device` is given."""
+    if isinstance(params, ShardedParams):
+        from ..parallel.mesh import mesh_device
+
+        model = BgeM3Model(config, params.tp)
+        device = device if device is not None else mesh_device(params.mesh)
+        return load_flax_params(model, params).to(device)
     device = default_device(device)
     if params is not None:
         return load_flax_params(BgeM3Model(config), params).to(device)
@@ -97,3 +114,11 @@ def build_bge_m3(config: BgeM3Config, params=None, rng_seed: int = 0,
     gen = torch.Generator(device=device)
     gen.manual_seed(rng_seed)
     return init_random_(model, gen)
+
+
+def full_flax_tree(model: BgeM3Model) -> dict:
+    """The whole bare Flax tree (numpy f32 leaves) of a model, its TP
+    slices gathered over the model axis: every rank of the model group
+    calls this; an unsharded model needs no collective."""
+    return state_dict_to_flax(model, gather_state(
+        dict(model.named_parameters()), model.tp))

@@ -97,19 +97,27 @@ def flax_to_state_dict(tree: dict) -> dict[str, np.ndarray]:
     return out
 
 
-def state_dict_to_flax(module: nn.Module) -> dict:
+def state_dict_to_flax(module: nn.Module, state: dict | None = None
+                       ) -> dict:
     """A module's parameters → the bare Flax tree of the JAX model (numpy
     f32 leaves): the inverse of `flax_to_state_dict`, which needs the
     module to tell a LayerNorm weight (`scale`) and an Embedding weight
-    (`embedding`) from a Linear weight (`kernel`, transposed)."""
+    (`embedding`) from a Linear weight (`kernel`, transposed). `state`
+    (name → tensor) gives the values instead of the module's own, e.g. a
+    TP model's slices gathered whole."""
+    def get(scope, name, own):
+        return own if state is None else state[f"{scope}.{name}"]
+
     tree: dict = {}
     for scope, sub in module.named_modules():
         if isinstance(sub, nn.Linear):
-            leaves = {"kernel": sub.weight.T, "bias": sub.bias}
+            leaves = {"kernel": get(scope, "weight", sub.weight).T,
+                      "bias": get(scope, "bias", sub.bias)}
         elif isinstance(sub, LayerNorm):
-            leaves = {"scale": sub.weight, "bias": sub.bias}
+            leaves = {"scale": get(scope, "weight", sub.weight),
+                      "bias": get(scope, "bias", sub.bias)}
         elif isinstance(sub, nn.Embedding):
-            leaves = {"embedding": sub.weight}
+            leaves = {"embedding": get(scope, "weight", sub.weight)}
         else:
             continue
         node = tree

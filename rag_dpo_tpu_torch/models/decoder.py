@@ -54,6 +54,9 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.collectives import gather_rows
+from .sharding import split_size
+
 NEG_INF = -1e30
 # f32 attention logits of one block of query rows, in bytes
 ATTN_BLOCK_BYTES = 1 << 29
@@ -266,24 +269,10 @@ def _tp_of(cfg: DecoderConfig, tp):
     return tp
 
 
-def _split(n: int, tp, what: str) -> int:
-    if n % tp.size:
-        raise ValueError(f"{what} of {n} does not split over model="
-                         f"{tp.size}")
-    return n // tp.size
-
-
 def _all_reduce(x, tp):
     if tp is not None:
         dist.all_reduce(x, group=tp.group)
     return x
-
-
-def _gather_features(x, tp):
-    """[..., F/tp] slices of every rank of the model group → [..., F]."""
-    parts = [torch.empty_like(x) for _ in range(tp.size)]
-    dist.all_gather(parts, x.contiguous(), group=tp.group)
-    return torch.cat(parts, dim=-1)
 
 
 def _write_rows(cache, frame: Frame, values):
@@ -301,7 +290,8 @@ class GQAttention(nn.Module):
         self.tp = tp = _tp_of(cfg, tp)
         qf, kvf = nh * dh, nkv * dh
         if tp is not None:
-            qf, kvf = _split(qf, tp, "nh·dh"), _split(kvf, tp, "nkv·dh")
+            qf, kvf = (split_size(qf, tp, "nh·dh"),
+                       split_size(kvf, tp, "nkv·dh"))
         # heads attended here: this rank's, or all of them after a gather
         self.gather = tp is not None and nkv % tp.size != 0
         self.heads = ((nh // tp.size, nkv // tp.size)
@@ -325,7 +315,7 @@ class GQAttention(nn.Module):
         q, k, v = (lin(hidden) for lin in
                    (self.q_proj, self.k_proj, self.v_proj))
         if self.gather:
-            q, k, v = (_gather_features(x, self.tp) for x in (q, k, v))
+            q, k, v = (gather_rows(x, self.tp, dim=-1) for x in (q, k, v))
         q = rope(q.reshape(b, s, nh, dh), frame.tables)
         k = rope(k.reshape(b, s, nkv, dh), frame.tables)
         v = v.reshape(b, s, nkv, dh)
@@ -389,7 +379,7 @@ class DecoderLayer(nn.Module):
         h, f = cfg.hidden_size, cfg.intermediate_size
         self.tp = _tp_of(cfg, tp)
         if self.tp is not None:
-            f = _split(f, self.tp, "intermediate_size")
+            f = split_size(f, self.tp, "intermediate_size")
         self.input_norm = RMSNorm(h, cfg.rms_norm_eps, cfg.param_dtype)
         self.attention = GQAttention(cfg, tp)
         self.post_attention_norm = RMSNorm(h, cfg.rms_norm_eps,

@@ -18,6 +18,18 @@ as the JAX encoder does. `attention_impl="ring"` shards the sequence over
 the `shard` axis of the mesh that an enclosing
 `parallel.context_parallel(mesh)` scope names (`ops.ring_attention`). `remat` recomputes each layer in the backward pass
 (`torch.utils.checkpoint`), as the JAX encoder's `nn.remat` does.
+
+Tensor parallelism (`tp`, this rank's `models.sharding.TensorParallel`):
+the layers hold their Megatron slices under JAX's rules — query, key,
+value and intermediate 1/tp of their output features behind *f*
+(`parallel.collectives.copy_to_model`), output and mlp_output 1/tp of
+their input features, their partial products summed by *g*
+(`reduce_from_model`) before the replicated bias is added once, as XLA
+adds it after the reduction. Attention runs on this rank's
+num_heads / tp heads; where tp does not divide num_heads, q, k and v are
+all-gathered first and every rank attends over all heads, keeping its own
+features of the context (equal results). Embeddings and LayerNorms stay
+whole.
 """
 
 from __future__ import annotations
@@ -31,6 +43,12 @@ from torch.nn import functional as F
 
 from ..ops.flash_attention import attention_reference
 from ..ops.flash_attention_bwd import flash_attention_fused
+from ..parallel.collectives import (
+    all_gather,
+    copy_to_model,
+    reduce_from_model,
+)
+from .sharding import split_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,28 +147,53 @@ class Dense(nn.Linear):
         w, b = self._cast_params()
         return F.linear(x.to(self.dtype), w) + b
 
+    def forward_row(self, x, tp):
+        """A `_ROW` product under TP: this rank's input features times its
+        rows of the kernel, summed over the model axis, then the bias
+        once. Without TP, `forward`."""
+        if tp is None:
+            return self(x)
+        if self.dtype == self.weight.dtype:
+            w, b = self.weight, self.bias
+        else:
+            w, b = self._cast_params()
+        return reduce_from_model(F.linear(x.to(self.dtype), w), tp) + b
+
+
+def _tp_of(tp):
+    return tp if tp is not None and tp.size > 1 else None
+
 
 class SelfAttention(nn.Module):
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, tp=None):
         super().__init__()
         h, dt = config.hidden_size, config.dtype
         self.config = config
-        self.query = Dense(h, h, dt)
-        self.key = Dense(h, h, dt)
-        self.value = Dense(h, h, dt)
-        self.output = Dense(h, h, dt)
+        self.tp = tp = _tp_of(tp)
+        f = split_size(h, tp, "hidden_size")
+        self.gather = tp is not None and config.num_heads % tp.size != 0
+        self.heads = (config.num_heads // tp.size
+                      if tp is not None and not self.gather
+                      else config.num_heads)
+        self.query = Dense(h, f, dt)
+        self.key = Dense(h, f, dt)
+        self.value = Dense(h, f, dt)
+        self.output = Dense(f, h, dt)
 
     def forward(self, hidden, lengths):
-        cfg = self.config
+        cfg, tp = self.config, self.tp
         b, s, h = hidden.shape
-        nh = cfg.num_heads
-        dh = h // nh
+        nh = self.heads
+        dh = h // cfg.num_heads
 
         def heads(x):
             return x.reshape(b, s, nh, dh).transpose(1, 2)
 
-        q, k, v = (heads(lin(hidden)) for lin in
-                   (self.query, self.key, self.value))
+        x = copy_to_model(hidden, tp)
+        q, k, v = (lin(x) for lin in (self.query, self.key, self.value))
+        if self.gather:
+            q, k, v = (all_gather(t, tp, dim=-1) for t in (q, k, v))
+        q, k, v = heads(q), heads(k), heads(v)
         impl = cfg.attention_impl
         if impl == "auto":
             impl = "flash" if cfg.use_flash_attention else "reference"
@@ -168,36 +211,42 @@ class SelfAttention(nn.Module):
             ctx = flash_attention_fused(q, k, v, lengths)
         else:
             ctx = attention_reference(q, k, v, lengths)
-        ctx = ctx.transpose(1, 2).reshape(b, s, h)
-        return self.output(ctx)
+        ctx = ctx.transpose(1, 2).reshape(b, s, nh * dh)
+        if self.gather:
+            per = h // tp.size
+            ctx = ctx[..., tp.rank * per:(tp.rank + 1) * per]
+        return self.output.forward_row(ctx, tp)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, tp=None):
         super().__init__()
         self.config = config
+        self.tp = tp = _tp_of(tp)
         eps = config.layer_norm_eps
-        self.attention = SelfAttention(config)
+        f = split_size(config.intermediate_size, tp, "intermediate_size")
+        self.attention = SelfAttention(config, tp)
         self.attention_norm = LayerNorm(config.hidden_size, eps)
-        self.intermediate = Dense(config.hidden_size,
-                                  config.intermediate_size, config.dtype)
-        self.mlp_output = Dense(config.intermediate_size,
-                                config.hidden_size, config.dtype)
+        self.intermediate = Dense(config.hidden_size, f, config.dtype)
+        self.mlp_output = Dense(f, config.hidden_size, config.dtype)
         self.output_norm = LayerNorm(config.hidden_size, eps)
 
     def forward(self, hidden, lengths):
         dtype = self.config.dtype
         attn_out = self.attention(hidden, lengths)
         hidden = self.attention_norm(hidden + attn_out).to(dtype)
-        mlp = nn.functional.gelu(self.intermediate(hidden), approximate="none")
-        mlp = self.mlp_output(mlp)
+        mlp = nn.functional.gelu(
+            self.intermediate(copy_to_model(hidden, self.tp)),
+            approximate="none")
+        mlp = self.mlp_output.forward_row(mlp, self.tp)
         return self.output_norm(hidden + mlp).to(dtype)
 
 
 class TransformerEncoder(nn.Module):
-    """Post-LN encoder; returns final hidden states [B, S, H]."""
+    """Post-LN encoder; returns final hidden states [B, S, H]. `tp`: this
+    rank's `TensorParallel` (its slices are allocated), or None."""
 
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, tp=None):
         super().__init__()
         if config.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"encoder dtype is f32 or bf16, got "
@@ -210,7 +259,7 @@ class TransformerEncoder(nn.Module):
         self.token_type_embeddings = nn.Embedding(config.type_vocab_size, h)
         self.embeddings_norm = LayerNorm(h, config.layer_norm_eps)
         for i in range(config.num_layers):
-            self.add_module(f"layer_{i}", EncoderLayer(config))
+            self.add_module(f"layer_{i}", EncoderLayer(config, tp))
 
     def layers(self):
         return [getattr(self, f"layer_{i}")

@@ -26,7 +26,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..parallel.mesh import AXIS_MODEL, axis_index, axis_size
+import torch.distributed as dist
+
+from ..parallel.mesh import AXIS_MODEL, AxisGroup
 
 # encoder names + decoder names (q/k/v/gate/up shard output features;
 # o_proj/down_proj shard input features → one all-reduce per block pair)
@@ -53,17 +55,13 @@ def param_spec(path: tuple) -> tuple:
 
 
 @dataclasses.dataclass(frozen=True)
-class TensorParallel:
+class TensorParallel(AxisGroup):
     """This rank's place on the model axis: the group the `_ROW` products
     all-reduce over, its size, and this rank's coordinate."""
-    group: object
-    size: int
-    rank: int
 
     @classmethod
-    def of(cls, mesh) -> "TensorParallel":
-        return cls(mesh.get_group(AXIS_MODEL), axis_size(mesh, AXIS_MODEL),
-                   axis_index(mesh, AXIS_MODEL))
+    def of(cls, mesh, axis: str = AXIS_MODEL) -> "TensorParallel":
+        return super().of(mesh, axis)
 
 
 class ShardedParams(dict):
@@ -74,6 +72,17 @@ class ShardedParams(dict):
         super().__init__(tree)
         self.mesh = mesh
         self.tp = TensorParallel.of(mesh)
+
+
+def split_size(n: int, tp, what: str) -> int:
+    """This rank's share of `n` features over the model axis (all of them
+    without TP); raises where the axis does not divide them."""
+    if tp is None:
+        return n
+    if n % tp.size:
+        raise ValueError(f"{what} of {n} does not split over model="
+                         f"{tp.size}")
+    return n // tp.size
 
 
 def _map_with_path(fn, tree, path=()):
@@ -117,3 +126,51 @@ def param_shardings(params, mesh) -> dict:
     names one; `mesh` is accepted for JAX's signature."""
     del mesh
     return _map_with_path(lambda path, _: param_spec(path), dict(params))
+
+
+# torch state dicts (name → tensor) under the same rules: a Linear's
+# `weight` is the Flax kernel transposed, so a `_COL` weight [out, in]
+# splits axis 0 and a `_ROW` weight axis 1
+def split_axis(name: str) -> int | None:
+    """The axis of the state-dict entry `name` that the TP rules split
+    over the model axis, or None where it is replicated."""
+    *scope, leaf = name.split(".")
+    flax_leaf = "kernel" if leaf == "weight" else leaf
+    spec = param_spec((*scope, flax_leaf))
+    if AXIS_MODEL not in spec:
+        return None
+    axis = spec.index(AXIS_MODEL)
+    return len(spec) - 1 - axis if flax_leaf == "kernel" else axis
+
+
+def slice_entry(name: str, value, tp: TensorParallel):
+    """This rank's slice of the state-dict entry `name` (a tensor, or a
+    numpy array made one), contiguous; replicated entries as they are."""
+    axis = split_axis(name)
+    if axis is None or tp is None or tp.size == 1:
+        return value
+    value = torch.as_tensor(value)
+    per = value.shape[axis] // tp.size
+    return value.narrow(axis, tp.rank * per, per).contiguous()
+
+
+def gather_entry(name: str, value, tp: TensorParallel | None):
+    """The whole entry `name` from every rank's slice: all-gathered over
+    the model axis (every rank of the model group calls this) and
+    concatenated along its split axis."""
+    axis = split_axis(name)
+    if axis is None or tp is None or tp.size == 1:
+        return value
+    parts = [torch.empty_like(value) for _ in range(tp.size)]
+    dist.all_gather(parts, value.contiguous(), group=tp.group)
+    return torch.cat(parts, dim=axis)
+
+
+def slice_state(state: dict, tp: TensorParallel) -> dict:
+    """This rank's slices of a whole state dict (e.g. a checkpoint's)."""
+    return {n: slice_entry(n, v, tp) for n, v in state.items()}
+
+
+def gather_state(state: dict, tp: TensorParallel | None) -> dict:
+    """The whole state dict from every rank's slices (`gather_entry`)."""
+    return {n: gather_entry(n, v, tp) for n, v in state.items()}

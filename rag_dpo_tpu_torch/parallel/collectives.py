@@ -16,6 +16,22 @@ So S logical shards can run in one process by stacking their local halves
 and calling the merge (`topk_merge_pairs` is that merge over two lists).
 The gather carries scores and ids in one f32 tensor (the int32 ids as
 their bits), so a merge costs one collective.
+
+The training step's collectives are differentiable, each over one axis of
+the mesh (`mesh.AxisGroup`; None or an axis of size 1 is the identity):
+
+* `all_gather`: JAX's `all_gather(tiled=True)`, whose transpose sums the
+  full gradient over the axis and keeps this rank's block (an all-reduce,
+  then a slice);
+* `pmean`: the mean over the axis, whose transpose divides the (equal)
+  cotangent by the axis size;
+* Megatron's pair over the `model` axis: `copy_to_model` (*f*: identity
+  forward, all-reduce of the gradient) before a `_COL` product, and
+  `reduce_from_model` (*g*: all-reduce forward, identity backward) after a
+  `_ROW` product.
+
+Each is an `all_gather` or an `all_reduce`, the two collectives gloo
+carries on CUDA tensors as well as NCCL does.
 """
 
 from __future__ import annotations
@@ -25,6 +41,114 @@ import torch.distributed as dist
 
 from ..ops.quantize import _stable_topk
 from .mesh import AXIS_SHARD, axis_size
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim: int, ax):
+        ctx.dim, ctx.ax = dim, ax
+        parts = [torch.empty_like(x) for _ in range(ax.size)]
+        dist.all_gather(parts, x.contiguous(), group=ax.group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.ax.group)
+        return grad.chunk(ctx.ax.size, dim=ctx.dim)[ctx.ax.rank], None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over the axis, times `scale`; backward: the cotangent times
+    `scale`, no collective (every rank holds the same cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, ax, scale: float):
+        ctx.scale = scale
+        out = x.reshape(-1).clone()          # a scalar as one element
+        dist.all_reduce(out, group=ax.group)
+        out = out.view(x.shape)
+        return out * scale if scale != 1.0 else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad * ctx.scale if ctx.scale != 1.0 else grad), None, None
+
+
+class _ReduceGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.ax.group)
+        return grad, None
+
+
+def _active(ax) -> bool:
+    return ax is not None and ax.size > 1
+
+
+def all_gather(x, ax, dim: int = 0):
+    """The blocks of every rank of the axis, concatenated along `dim` in
+    coordinate order; differentiable (see the module docstring)."""
+    return _AllGather.apply(x, dim, ax) if _active(ax) else x
+
+
+def gather_rows(x, ax, dim: int = 0):
+    """`all_gather` without a gradient, for any dtype (bools travel as
+    int32, which every backend carries)."""
+    if not _active(ax):
+        return x
+    with torch.no_grad():
+        y = x.to(torch.int32) if x.dtype == torch.bool else x
+        parts = [torch.empty_like(y) for _ in range(ax.size)]
+        dist.all_gather(parts, y.contiguous(), group=ax.group)
+        out = torch.cat(parts, dim=dim)
+    return out.bool() if x.dtype == torch.bool else out
+
+
+def pmean(x, ax):
+    """The mean over the axis; differentiable."""
+    return _AllReduce.apply(x, ax, 1.0 / ax.size) if _active(ax) else x
+
+
+def copy_to_model(x, tp):
+    """Megatron's *f*: identity forward, the gradient all-reduced over the
+    model axis (each rank's `_COL` slice gives only its share of it)."""
+    return _ReduceGrad.apply(x, tp) if _active(tp) else x
+
+
+def reduce_from_model(x, tp):
+    """Megatron's *g*: the `_ROW` slices' partial products summed over the
+    model axis; the gradient passes through unchanged."""
+    return _AllReduce.apply(x, tp, 1.0) if _active(tp) else x
+
+
+def sum_grads(params, ax, bucket_numel: int = 1 << 26) -> None:
+    """Every parameter's `.grad` summed over the axis in place, in flat
+    buckets of at most `bucket_numel` elements (one all-reduce a bucket);
+    parameters without a gradient are skipped on every rank alike."""
+    if not _active(ax):
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    start = 0
+    while start < len(grads):
+        end, n = start, 0
+        while end < len(grads) and (end == start
+                                    or n + grads[end].numel()
+                                    <= bucket_numel):
+            n += grads[end].numel()
+            end += 1
+        bucket = grads[start:end]
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat, group=ax.group)
+        for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+            g.copy_(part.view_as(g))
+        start = end
 
 
 def _pad_or_cut(scores, pos, k: int):

@@ -71,12 +71,17 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _backend(device_type: str | None) -> tuple[str, str]:
+def _backend(device_type: str | None,
+             backend: str | None = None) -> tuple[str, str]:
     """(device type, backend): "cpu" is gloo; anything else is the card
-    over NCCL, and without a card it raises, as `ops.default_device`
-    does: nothing falls back to the CPU."""
+    over NCCL (or gloo on CUDA tensors when `backend="gloo"` is asked:
+    several ranks on one card, which NCCL refuses), and without a card it
+    raises, as `ops.default_device` does: nothing falls back to the
+    CPU."""
     if device_type == "cpu":
         return "cpu", "gloo"
+    if backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"backend is 'nccl' or 'gloo', got {backend!r}")
     if device_type not in (None, "cuda"):
         raise ValueError(f"device_type is 'cuda' or 'cpu', got "
                          f"{device_type!r}")
@@ -84,14 +89,15 @@ def _backend(device_type: str | None) -> tuple[str, str]:
         raise RuntimeError(
             "no CUDA device (torch.cuda.is_available() is False); pass "
             'device_type="cpu" for a gloo mesh on the CPU')
-    return "cuda", "nccl"
+    return "cuda", backend or "nccl"
 
 
 # --------------------------------------------------------- process group
 def initialize_multihost(coordinator_address: str | None = None,
                          num_processes: int | None = None,
                          process_id: int | None = None, *,
-                         device_type: str | None = None) -> None:
+                         device_type: str | None = None,
+                         backend: str | None = None) -> None:
     """Join this process to a multi-process deployment: one rank per
     device, `init_process_group` over `tcp://<coordinator_address>`
     (host:port) with `num_processes` ranks, this one `process_id`. With
@@ -100,12 +106,13 @@ def initialize_multihost(coordinator_address: str | None = None,
     without it there is nothing to join: a no-op, as JAX's auto mode in a
     single process is. Idempotent: a second call in an initialized
     process does nothing. On the card the rank drives `cuda:<local rank>`
-    (`LOCAL_RANK`, else the rank modulo the host's cards)."""
+    (`LOCAL_RANK`, else the rank modulo the host's cards); `backend="gloo"`
+    joins card ranks over gloo instead of NCCL."""
     if dist.is_initialized():
         return
     if coordinator_address is None and "WORLD_SIZE" not in os.environ:
         return
-    dev_type, backend = _backend(device_type)
+    dev_type, backend = _backend(device_type, backend)
     if coordinator_address is not None:
         if num_processes is None or process_id is None:
             raise ValueError("a coordinator address needs num_processes "
@@ -145,6 +152,8 @@ def create_mesh(spec: MeshSpec | None = None, devices=None,
 
     dev_type, backend = _backend(device_type)
     _ensure_group(dev_type)
+    if dev_type == "cuda" and dist.get_backend() == "gloo":
+        backend = "gloo"                 # card ranks joined over gloo
     if dist.get_backend() != backend:
         raise ValueError(f"the process group runs {dist.get_backend()}, a "
                          f"{dev_type} mesh needs {backend}")
@@ -192,6 +201,20 @@ def create_multihost_mesh(spec: MeshSpec | None = None, *,
 def axis_size(mesh, axis: str | tuple = AXIS_SHARD) -> int:
     names = (axis,) if isinstance(axis, str) else tuple(axis)
     return int(np.prod([mesh.size(AXES.index(a)) for a in names]))
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """This rank's place on one axis of a mesh: the axis's process group,
+    its size, and this rank's coordinate (its rank in the group)."""
+    group: object
+    size: int
+    rank: int
+
+    @classmethod
+    def of(cls, mesh, axis: str):
+        return cls(mesh.get_group(axis), axis_size(mesh, axis),
+                   axis_index(mesh, axis))
 
 
 def axis_index(mesh, axis: str | tuple = AXIS_SHARD) -> int:

@@ -1,10 +1,12 @@
-"""Training loop: batches → steps → checkpoints → metrics, on one device.
+"""Training loop: batches → steps → checkpoints → metrics.
 
 Port of `rag_dpo_tpu/train/loop.py`: deterministic batching over (query,
 passage) pair datasets (the numpy epoch order and grouping are the
 reference's, so both packages draw the same batches), periodic
 checkpointing, resume from the latest step, and JSONL metric logging.
-`train_retriever` takes a torch `device` where the reference takes a mesh.
+`train_retriever` takes a mesh, as the reference does, or a torch device.
+On a mesh every rank draws the same global batch and the sharded step
+keeps its rows; the metrics lines are written by the first rank only.
 """
 
 from __future__ import annotations
@@ -18,10 +20,17 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import AXIS_DATA, axis_size, mesh_device
 from ..tokenize import HashedTokenizer, Tokenizer
 from .checkpoint import TrainCheckpointer
-from .contrastive import TrainConfig, create_train_state, make_train_step
+from .contrastive import (
+    TrainConfig,
+    create_train_state,
+    make_sharded_train_step,
+    make_train_step,
+)
 
 log = logging.getLogger(__name__)
 
@@ -110,19 +119,30 @@ class PairBatcher:
         return batch
 
 
+def _is_mesh(x) -> bool:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return isinstance(x, DeviceMesh)
+
+
 def train_retriever(
     pairs: Sequence[tuple[str, str]],
     train_config: TrainConfig,
-    device,
+    mesh,
     ckpt_dir,
     loop_config: LoopConfig | None = None,
     tokenizer: Tokenizer | None = None,
     metrics_path=None,
     groups: Sequence | None = None,
     negatives: Sequence | None = None,
+    params=None,
 ):
-    """Run (or resume) contrastive fine-tuning on `device`. → final
-    TrainState. `groups` and `negatives` as in `PairBatcher`."""
+    """Run (or resume) contrastive fine-tuning. → final TrainState.
+
+    `mesh`: a `DeviceMesh` (every rank calls this; `ckpt_dir` is one
+    every rank sees; the batch size must split over `data`), or a torch
+    device. `groups` and `negatives` as in `PairBatcher`. `params`: the
+    Flax tree to start from (seeded random weights without one)."""
     loop = loop_config or LoopConfig()
     tokenizer = tokenizer or HashedTokenizer(
         vocab_size=train_config.model.encoder.vocab_size)
@@ -130,8 +150,19 @@ def train_retriever(
                           loop.seq_len, loop.shuffle_seed,
                           groups=groups, negatives=negatives)
 
-    state = create_train_state(train_config, device=device)
-    step_fn = make_train_step(train_config, state)
+    first = True
+    if _is_mesh(mesh):
+        n_data = axis_size(mesh, AXIS_DATA)
+        if loop.batch_size % n_data:
+            raise ValueError(f"batch_size {loop.batch_size} does not split "
+                             f"over data={n_data}")
+        state = create_train_state(train_config, device=mesh_device(mesh),
+                                   params=params)
+        step_fn, state = make_sharded_train_step(train_config, mesh, state)
+        first = dist.get_rank() == 0
+    else:
+        state = create_train_state(train_config, device=mesh, params=params)
+        step_fn = make_train_step(train_config, state)
 
     ckpt = TrainCheckpointer(ckpt_dir)
     latest = ckpt.latest_step()
@@ -141,7 +172,7 @@ def train_retriever(
     start = state.step
 
     metrics_file = None
-    if metrics_path:
+    if metrics_path and first:
         pathlib.Path(metrics_path).parent.mkdir(parents=True,
                                                 exist_ok=True)
         metrics_file = open(metrics_path, "a", encoding="utf-8")

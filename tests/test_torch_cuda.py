@@ -1934,6 +1934,50 @@ def test_dp_embedder_and_tp_decoder_at_world_one(dev, nccl_mesh):
                                   gen.generate_ids(ids, lens, s))
 
 
+def test_sharded_train_step_at_world_one(dev, nccl_mesh):
+    """`make_sharded_train_step` on the NCCL mesh of one: two steps with
+    hard negatives equal `make_train_step`'s on the card from the same
+    seeded weights (losses rtol 1e-5; parameters within 1% of Σ lr, the
+    key bias within Σ lr); K1, K8 and K9 launch, no twin runs."""
+    from rag_dpo_tpu_torch.models import BgeM3Config
+    from rag_dpo_tpu_torch.train import (
+        TrainConfig,
+        create_train_state,
+        make_sharded_train_step,
+        make_train_step,
+    )
+    from rag_dpo_tpu_torch.train.contrastive import learning_rate_at
+
+    cfg = TrainConfig(model=BgeM3Config.tiny(), warmup_steps=1,
+                      learning_rate=1e-3)
+    rng = np.random.default_rng(8)
+    batch = {}
+    for name in ("query", "passage", "negative"):
+        batch[f"{name}_ids"] = torch.from_numpy(
+            rng.integers(4, 1024, (4, 40))).long()
+        batch[f"{name}_lengths"] = torch.tensor([40, 23, 7, 31])
+    batch["negative_valid"] = torch.tensor([True, True, False, True])
+    plain = create_train_state(cfg, rng_seed=3, device=dev)
+    step = make_train_step(cfg, plain)
+    sh_step, sharded = make_sharded_train_step(
+        cfg, nccl_mesh, create_train_state(cfg, rng_seed=3, device=dev))
+    before = {n: _kernels.LAUNCHES[n] for n in
+              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    twins = dict(_kernels.PLAIN_ON_CUDA)
+    for _ in range(2):
+        plain, want = step(plain, batch)
+        sharded, got = sh_step(sharded, batch)
+        assert float(got["loss"]) == pytest.approx(float(want["loss"]),
+                                                   rel=1e-5)
+    assert all(_kernels.LAUNCHES[n] > c for n, c in before.items())
+    assert dict(_kernels.PLAIN_ON_CUDA) == twins
+    lr_sum = sum(learning_rate_at(cfg, c) for c in range(2))
+    ref = plain.model.state_dict()
+    for name, value in sharded.model.state_dict().items():
+        atol = lr_sum if name.endswith("key.bias") else 0.01 * lr_sum
+        torch.testing.assert_close(value, ref[name], atol=atol, rtol=1e-5)
+
+
 def test_bf16_encoder_on_the_card_matches_the_cpu(dev):
     """`EncoderConfig.dtype=torch.bfloat16` on the card (bf16 K1 and
     GEMMs) against the bf16 model on the CPU, within 2e-2 (C-5)."""

@@ -10,7 +10,10 @@ device each), the shard axis spanning both.
   the other process;
 * the guards of `create_multihost_mesh` and an idempotent init;
 * decoder TP with the model axis spanning both processes: greedy tokens
-  (f32 and int8 KV caches) equal the unsharded run.
+  (f32 and int8 KV caches) equal the unsharded run;
+* the sharded train step with the data axis spanning both processes, each
+  feeding only its own rows (`host_local_rows`): the one-process step's
+  losses and parameters on the whole batch.
 """
 
 import dataclasses
@@ -164,6 +167,36 @@ def _decoder_tp(rank, world, params):
     return out
 
 
+def _train_two_hosts(rank, world, seed):
+    from rag_dpo_tpu_torch.models.bge_m3 import full_flax_tree
+    from rag_dpo_tpu_torch.models.convert import flax_to_state_dict
+    from rag_dpo_tpu_torch.parallel import (
+        MeshSpec,
+        create_multihost_mesh,
+        host_local_rows,
+    )
+    from rag_dpo_tpu_torch.parallel.mesh import AXIS_DATA
+    from rag_dpo_tpu_torch.train import (
+        create_train_state,
+        make_sharded_train_step,
+    )
+    from torch_train_ranks import make_batch, port_config, to_torch
+
+    cfg = port_config("data2")
+    mesh = create_multihost_mesh(MeshSpec(data=2), device_type="cpu")
+    step, state = make_sharded_train_step(
+        cfg, mesh, create_train_state(cfg, rng_seed=seed, device="cpu"))
+    whole = to_torch(make_batch(seed, True))
+    mine = {k: host_local_rows(v.shape, mesh, v[2 * rank:2 * rank + 2],
+                               AXIS_DATA)    # no process holds the rest
+            for k, v in whole.items()}
+    losses = []
+    for _ in range(3):
+        state, metrics = step(state, mine, local=True)
+        losses.append(float(metrics["loss"]))
+    return losses, flax_to_state_dict(full_flax_tree(state.model))
+
+
 def test_two_process_planted_neighbour_crosses_processes():
     assert run_ranks(_planted, 2) == [40, 40]
 
@@ -196,3 +229,32 @@ def test_two_process_decoder_tp():
     for per_cache in run_ranks(_decoder_tp, 2, params):
         for ref, tp in per_cache:
             np.testing.assert_array_equal(ref, tp)
+
+
+def test_two_process_train_step_feeds_host_local_rows():
+    """Each process loads only its half of the batch; three steps equal
+    the one-process step on the whole batch: losses within 1e-6, the
+    parameters by `test_torch_train.py`'s rule (1% of Σ lr; the key bias,
+    whose gradient is 0 in exact arithmetic, Σ lr): only the order of the
+    sums differs."""
+    from rag_dpo_tpu_torch.models.bge_m3 import full_flax_tree
+    from rag_dpo_tpu_torch.models.convert import flax_to_state_dict
+    from rag_dpo_tpu_torch.train import create_train_state, make_train_step
+    from rag_dpo_tpu_torch.train.contrastive import learning_rate_at
+    from torch_train_ranks import make_batch, port_config, to_torch
+
+    cfg = port_config("data2")
+    state = create_train_state(cfg, rng_seed=5, device="cpu")
+    step = make_train_step(cfg, state)
+    want = []
+    for _ in range(3):
+        state, metrics = step(state, to_torch(make_batch(5, True)))
+        want.append(float(metrics["loss"]))
+    params = flax_to_state_dict(full_flax_tree(state.model))
+    lr_sum = sum(learning_rate_at(cfg, c) for c in range(3))
+    for losses, got in run_ranks(_train_two_hosts, 2, 5):
+        np.testing.assert_allclose(losses, want, rtol=1e-6)
+        for name, value in got.items():
+            atol = lr_sum if name.endswith("key.bias") else 0.01 * lr_sum
+            np.testing.assert_allclose(value, params[name], atol=atol,
+                                       rtol=1e-5, err_msg=name)

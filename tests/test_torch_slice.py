@@ -5,8 +5,9 @@ rerank and hermetic replay module, slice 4's int8 and postings searches,
 slice 14's corpus-build modules, with bs4 and lxml refused too, as the
 card's machine has neither, slice 15's HF conversion and demo server,
 with transformers and safetensors refused, slice 18's image request
-through a tiny `attach_vision` on the continuous pool, and slice 19's mesh
-modules: a gloo world of one through a row-sharded store).
+through a tiny `attach_vision` on the continuous pool, slice 19's mesh
+modules: a gloo world of one through a row-sharded store, and slice 20's
+sharded train step on it).
 
 Both stacks use the same exported Flax parameters (tiny encoder in
 reference-attention mode and ELL width 48, as `evals/hermetic.py` builds
@@ -434,6 +435,12 @@ BLOCKED_RUN = textwrap.dedent("""
             == index.search_dense(q, 5)[1]).all()
     assert sharded.search_dense(q, 5)[1][0, 0] == 3
     assert make_ring_attention(mesh)
+    # the sharded train step on that world of one (slice 20)
+    from rag_dpo_tpu_torch.train import make_sharded_train_step
+    sh_step, sh_state = make_sharded_train_step(
+        cfg, mesh, create_train_state(cfg, device="cpu"))
+    sh_state, sh_metrics = sh_step(sh_state, batcher.batch_at(0))
+    assert sh_state.step == 1 and float(sh_metrics["loss"]) > 0
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
