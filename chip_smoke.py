@@ -133,6 +133,18 @@ Phases, in order; any failure exits non-zero before the result lines:
    K3 and K4 must launch and no twin may run; then `python -m
    rag_dpo_tpu_torch.app.cli eval --limit 2` boots the same npz over
    the saved index in a subprocess on the card;
+6d′. serve, BF16 conversion (after 6d) — a synthetic BF16
+   `MistralForCausalLM` snapshot at Mistral-Nemo-12B's published widths
+   (5120, 32/8 heads of 128, FFN 14,336, vocab 131,072, the untied
+   `lm_head`) but 1 and 2 layers, drawn on the card from `--seed` and
+   written as safetensors by hand (the card's machine has no `safetensors`
+   package), one file a layer; `convert_weights decoder --quantize-int8`
+   converts each depth in a subprocess (seconds, peak resident memory,
+   its per-layer slope extrapolated to 40 layers: under 48 GB); the
+   2-layer npz must equal, bit for bit, the quantization done in this
+   process from the tensors widened by torch; loaded as `llm.mode: tpu`
+   loads a checkpoint, one prefill's logits must be finite and the bits of
+   the in-process tree's model;
 7. serve, MaxSim — `create_pipeline(use_maxsim=True)` over the same loaded
    index answers 8 questions, reranking 40 candidates to 10 by MaxSim over
    the stored ColBERT rows; K7 must launch and no twin may run;
@@ -152,6 +164,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    lengths, decode at batches 1 and 8 over 128 new tokens beside the
    bytes bound (one step profiled), the speculative path's tokens a step
    and the phase's peak device memory;
+6e′. judge (inside 6e, on its 12B) — `evals/judge_axis.py::
+   run_judge_axis` over the first 8 questions of the hermetic v2 stack
+   (the committed trained encoder, the extractive fake LLM) with the 12B
+   as the judge in choose mode: every score non-None, every traced bucket
+   one of the six and every veto "non" or "oui" (seconds a question, the
+   mean); K3 and K4 must launch and no twin may run;
 6f. serve, continuous (after 6e, its 12B freed) — (a) the slot pool
    (`serving/continuous.py`) of the tiny decoder in f32 and in bf16 with
    int8 weights and the int8 KV cache: 4 slots, 12 staggered requests,
@@ -221,6 +239,13 @@ Phases, in order; any failure exits non-zero before the result lines:
    its MaxSim arm, where K3, K4 and K7 must launch and no twin may run. (The
    random-init record needs Flax's initialisation, which only jax makes:
    it is gated by a CPU test.)
+8b. the learned-quality loop — `evals/train_encoder.py::train_and_replay`
+   on the card: 800 steps of the committed trained record's recipe (the
+   tiny encoder, plain in-batch InfoNCE), its npz written and loaded back,
+   the replay ×3 with it: the loss must fall, K3 and K4 launch with no
+   twin, true_doc@5 beat the best committed random-init record; the
+   trained gate's verdict is logged (ROADMAP C-36: the port's own
+   initialisation misses it, on the CPU and on the card);
 9. train — contrastive training of a full-width BGE-M3 (f32, flash on) on
    16 pairs x 192 tokens with one mined hard negative each, through
    `train_retriever`: 2 steps and a checkpoint, then a resume to step 4;
@@ -239,6 +264,15 @@ Phases, in order; any failure exits non-zero before the result lines:
    parameters gathered whole. K1, K8 and K9 must launch in every rank and
    no twin may run; the step times are printed, the gloo ones marked as
    going through the host (not a multi-card number).
+10. front doors — the Quick start's `python -m
+   rag_dpo_tpu_torch.check_install` in a subprocess (exit 0, "Prêt.", its
+   device program launching K4), then `python -m
+   rag_dpo_tpu_torch.app.rag_cli --canned` in this process, on the demo
+   stack and with `--index` over a saved copy of the demo index: 5/5
+   answered each time, K4 launched, no twin (no K3 on either path, as in
+   JAX: the demo's summary prefilter masks the sparse arm, which a small
+   store scores in full, and `--index` has no BM25 arm). The seconds of
+   the four phases of this kind (6d′, 6e′, 8b, 10) are printed together.
 
 The second-to-last line is a JSON object with each kernel's launches in
 the phase of the main path that runs it (serve for the ELL kernel, MaxSim
@@ -269,6 +303,7 @@ import os
 import pathlib
 import re
 import resource
+import struct
 import subprocess
 import sys
 import tempfile
@@ -325,7 +360,10 @@ CONCURRENT_QUESTIONS = 2
 # tokens and batches; the tiny decoder's cached greedy token may lie this
 # far below its full forward's largest logit (f32: the order of sums; bf16
 # activations: three bf16 ulps at the logits' magnitude, ~4)
-GEN_NEW_TOKENS, DECODE_NEW_TOKENS, DECODE_BATCHES = 64, 128, (1, 8)
+# (cut from 64 and 128 to 32 and 64 when the BF16, judge, loop and
+# front-door phases came: the retrieval step's own LLM calls decode up to
+# GEN_NEW_TOKENS each)
+GEN_NEW_TOKENS, DECODE_NEW_TOKENS, DECODE_BATCHES = 32, 64, (1, 8)
 # the RAG answers of phase 6e (cut from 3 so that the `cuda` tests and the
 # whole smoke, phase 6f included, keep a 900 s chip call's margin; from 2
 # to 1, ~25 s, when phase 6g's image requests came)
@@ -348,6 +386,20 @@ DECODER_TOL = {"float32": 1e-4, "bfloat16": 0.1}
 # 2 ulps between JAX's compiled encode and the op-by-op one)
 VISION_NEW_TOKENS, VISION_BESIDE = 32, 8
 VISION_TOL, VISION_BF16_ULPS = 1e-4, 8
+# phase 6d′: the synthetic BF16 snapshot's depths (the peak's per-layer
+# slope between them is extrapolated to the published 40 layers), the
+# loaded model's context, and the card machine's host memory limit
+BF16_LAYERS, BF16_CONTEXT, HOST_LIMIT_GB = (1, 2), 4096, 48
+# phase 6e′: the judge axis's questions on phase 6e's 12B (the full 48 are
+# `python -m rag_dpo_tpu_torch.evals.judge_axis`, outside the smoke)
+JUDGE_QUESTIONS = 8
+# phase 8b: the learned-quality loop's recipe steps; whether its trained
+# gate (each metric within its tolerance of the best committed trained
+# record) is held: the port's own initialisation (C-3) trains an encoder
+# that beats random-init but misses that gate, source_score on the CPU
+# and true_doc@5 by one question on the card (ROADMAP C-36), so the
+# verdict is logged, not checked
+LOOP_STEPS, LOOP_GATE_HELD = 800, False
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_PAIRS, TRAIN_SEQ, TIMED_STEPS = 16, 192, 8
 # phase 9b: the sharded step's steps, its learning rate from the first step
@@ -2282,6 +2334,9 @@ def run_path(seed: int, dev, dataset, chunks, colbert_len: int) -> dict:
         served = serve_http(stack, questions, dev, seed, pathlib.Path(tmp))
         gc.collect()  # the converted encoders
         torch.cuda.empty_cache()
+        bf16 = convert_bf16(seed, dev, pathlib.Path(tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
         maxsim = serve_maxsim(stack, questions, colbert_len)
         generate = serve_generate(stack, questions, dev, seed)
         gc.collect()  # the 12B decoder
@@ -2294,7 +2349,7 @@ def run_path(seed: int, dev, dataset, chunks, colbert_len: int) -> dict:
     return {"launches": launches, "plain_on_cuda": plain,
             "generate": generate, "continuous": continuous, "mesh": mesh,
             "embedder": embedder, "agent": agent, "concurrent": concurrent,
-            "http": served,
+            "http": served, "bf16": bf16,
             "flash_shapes": shapes,
             "ingest_chunks_per_s": N_CHUNKS / ingest_s,
             "colbert_store_gb": store_gb, "ingest_host_peak_gb": rss_gb,
@@ -3249,34 +3304,281 @@ def resident_kb(pid: int) -> int:
     return 0
 
 
-def convert_snapshot(snapshot: pathlib.Path, out: pathlib.Path) -> dict:
-    """`python -m rag_dpo_tpu_torch.models.convert_weights bge-m3` in a
-    subprocess: its seconds, printout, the npz's bytes and the child's own
-    peak resident memory, read from /proc every 20 ms (`resident_kb`; a
-    child's `ru_maxrss` would count this process's pages, which it shares
-    until its exec), None where /proc shows none."""
-    log_out, log_err = out.with_suffix(".out"), out.with_suffix(".err")
+def convert_snapshots(jobs: list) -> list:
+    """`python -m rag_dpo_tpu_torch.models.convert_weights KIND SNAPSHOT
+    OUT [EXTRA...]` for each (snapshot, out, kind, extra) of `jobs`, in
+    subprocesses started together: each one's seconds, printout, the npz's
+    bytes and the child's own peak resident memory, read from /proc every
+    20 ms (`resident_kb`; a child's `ru_maxrss` would count this process's
+    pages, which it shares until its exec), None where /proc shows none."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    t0 = time.perf_counter()
-    peak_kb = 0
-    with open(log_out, "w") as fo, open(log_err, "w") as fe:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "rag_dpo_tpu_torch.models.convert_weights",
-             "bge-m3", str(snapshot), str(out)],
-            cwd=ROOT, env=env, stdout=fo, stderr=fe)
-        while proc.poll() is None:
-            peak_kb = max(peak_kb, resident_kb(proc.pid))
+    runs = []
+    with contextlib.ExitStack() as stack:
+        for snapshot, out, kind, extra in jobs:
+            logs = (out.with_suffix(".out"), out.with_suffix(".err"))
+            fo, fe = (stack.enter_context(open(f, "w")) for f in logs)
+            runs.append({"logs": logs, "peak_kb": 0, "t0": time.perf_counter(),
+                         "proc": subprocess.Popen(
+                             [sys.executable, "-m",
+                              "rag_dpo_tpu_torch.models.convert_weights",
+                              kind, str(snapshot), str(out), *extra],
+                             cwd=ROOT, env=env, stdout=fo, stderr=fe)})
+        while any("seconds" not in r for r in runs):
+            for r in runs:
+                if "seconds" in r:
+                    continue
+                r["peak_kb"] = max(r["peak_kb"], resident_kb(r["proc"].pid))
+                if r["proc"].poll() is not None:
+                    r["seconds"] = time.perf_counter() - r["t0"]
             time.sleep(0.02)
-    seconds = time.perf_counter() - t0
-    printed = log_out.read_text()
-    check(proc.returncode == 0,
-          f"the converter exited {proc.returncode}: "
-          f"{log_err.read_text()[-2000:]}")
-    check("loaded " in printed and "wrote " in printed,
-          f"the converter printed {printed!r}")
-    return {"seconds": seconds, "npz_bytes": out.stat().st_size,
-            "peak_gb": peak_kb * 1024 / 1e9 if peak_kb else None,
-            "printed": printed}
+    results = []
+    for r, (_, out, _, _) in zip(runs, jobs):
+        printed = r["logs"][0].read_text()
+        check(r["proc"].returncode == 0,
+              f"the converter exited {r['proc'].returncode}: "
+              f"{r['logs'][1].read_text()[-2000:]}")
+        check("loaded " in printed and "wrote " in printed,
+              f"the converter printed {printed!r}")
+        results.append({"seconds": r["seconds"],
+                        "npz_bytes": out.stat().st_size,
+                        "peak_gb": r["peak_kb"] * 1024 / 1e9
+                        if r["peak_kb"] else None, "printed": printed})
+    return results
+
+
+def write_safetensors(path: pathlib.Path, tensors: dict) -> int:
+    """Host torch tensors → one `*.safetensors` file, written by hand (the
+    card's machine has no `safetensors` package): an 8-byte little-endian
+    header length, the JSON header {name: {dtype, shape, data_offsets}}
+    padded with spaces to 8 bytes, then the tensors' bytes in order. →
+    the bytes written."""
+    import torch
+
+    names = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.uint8).numpy().data)
+    return 8 + len(blob) + offset
+
+
+# HF `MistralForCausalLM` tensor names of a layer → the Flax path under it
+MISTRAL_NAMES = (("self_attn.q_proj", ("attention", "q_proj")),
+                 ("self_attn.k_proj", ("attention", "k_proj")),
+                 ("self_attn.v_proj", ("attention", "v_proj")),
+                 ("self_attn.o_proj", ("attention", "o_proj")),
+                 ("mlp.gate_proj", ("gate_proj",)),
+                 ("mlp.up_proj", ("up_proj",)),
+                 ("mlp.down_proj", ("down_proj",)))
+
+
+def write_bf16_snapshot(seed: int, dev, snap: pathlib.Path, cfg) -> tuple:
+    """Phase 6d′'s synthetic BF16 `MistralForCausalLM` snapshot at `cfg`'s
+    widths (drawn on the card from `seed`: N(0, 0.02) weights, norms
+    1 + N(0, 0.1), the untied `lm_head`), one file for the embedding, the
+    final norm and the head and one a layer, as published snapshots are
+    sharded; and, tensor by tensor as it is written, the tree the converter
+    should write: each tensor widened by torch (`.float()`, exact), the
+    kernels quantized by `quantize_decoder_params`. → (that tree, the
+    files, bytes written)."""
+    import torch
+
+    from rag_dpo_tpu_torch.models.decoder import quantize_decoder_params
+
+    h, dh, ffn = cfg.hidden_size, cfg.dh, cfg.intermediate_size
+    shapes = {"self_attn.q_proj": (cfg.num_heads * dh, h),
+              "self_attn.k_proj": (cfg.num_kv_heads * dh, h),
+              "self_attn.v_proj": (cfg.num_kv_heads * dh, h),
+              "self_attn.o_proj": (h, cfg.num_heads * dh),
+              "mlp.gate_proj": (ffn, h), "mlp.up_proj": (ffn, h),
+              "mlp.down_proj": (h, ffn)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(shape, std=0.02, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std
+                + mean).to(torch.bfloat16).cpu()
+
+    def quantized(w):
+        return quantize_decoder_params(
+            {"x": {"kernel": w.float().numpy().T}})["x"]
+
+    n_files = cfg.num_layers + 1
+    files = [snap / f"model-{i + 1:05d}-of-{n_files:05d}.safetensors"
+             for i in range(n_files)]
+    emb, norm, head = draw((cfg.vocab_size, h)), draw((h,), 0.1, 1.0), \
+        draw((cfg.vocab_size, h))
+    tree = {"embed_tokens": {"embedding": emb.float().numpy()},
+            "final_norm": {"scale": norm.float().numpy()},
+            "lm_head": quantized(head)}
+    nbytes = write_safetensors(files[0], {
+        "model.embed_tokens.weight": emb, "model.norm.weight": norm,
+        "lm_head.weight": head})
+    del emb, head
+    for i in range(cfg.num_layers):
+        tensors, layer = {}, {"attention": {}}
+        for name, path in MISTRAL_NAMES:
+            w = tensors[f"model.layers.{i}.{name}.weight"] = draw(
+                shapes[name])
+            node = layer
+            for part in path[:-1]:
+                node = node[part]
+            node[path[-1]] = quantized(w)
+        for name, key in (("input_layernorm", "input_norm"),
+                          ("post_attention_layernorm",
+                           "post_attention_norm")):
+            w = tensors[f"model.layers.{i}.{name}.weight"] = draw(
+                (h,), 0.1, 1.0)
+            layer[key] = {"scale": w.float().numpy()}
+        nbytes += write_safetensors(files[i + 1], tensors)
+        tree[f"layer_{i}"] = layer
+        del tensors
+    return tree, files, nbytes
+
+
+def mistral_config_json(cfg, layers: int) -> str:
+    return json.dumps({
+        "architectures": ["MistralForCausalLM"], "model_type": "mistral",
+        "hidden_size": cfg.hidden_size, "num_hidden_layers": layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.dh,
+        "intermediate_size": cfg.intermediate_size,
+        "vocab_size": cfg.vocab_size, "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_norm_eps, "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16"})
+
+
+def convert_bf16(seed: int, dev, root: pathlib.Path) -> dict:
+    """Phase 6d′: a synthetic BF16 Mistral-Nemo-12B snapshot at its
+    published widths but BF16_LAYERS layers (`write_bf16_snapshot`; the
+    one-layer snapshot links the two-layer one's first files) through
+    `convert_weights decoder --quantize-int8` in a subprocess at each
+    depth, side by side: their seconds and peak resident memory, extrapolated by the
+    per-layer difference to the published 40 layers (must stay under
+    HOST_LIMIT_GB); the deeper npz must hold the tree made in process
+    (int8 kernels and f32 scales, the f32 embedding and norms) bit for
+    bit; loaded as `llm.mode: tpu` loads a checkpoint (`load_params_npz`
+    into a `TPULLMProvider`, the untied head), one prefill's logits must be
+    finite and the bits of a model loaded from the in-process tree."""
+    import numpy as np
+    import torch
+
+    from rag_dpo_tpu_torch.models.convert import (
+        flatten_params,
+        load_params_npz,
+    )
+    from rag_dpo_tpu_torch.models.decoder import DecoderConfig
+    from rag_dpo_tpu_torch.providers.tpu_llm import TPULLMProvider
+
+    t_phase = time.perf_counter()
+    deep = max(BF16_LAYERS)
+    published = DecoderConfig.mistral_nemo_12b()
+    cfg = dataclasses.replace(
+        published, num_layers=deep, quantize_weights=True,
+        tie_embeddings=False, max_seq_len=BF16_CONTEXT)
+    base = root / "bf16"
+    base.mkdir()
+    snaps = {layers: base / f"mistral_nemo_12b_{layers}l"
+             for layers in BF16_LAYERS}
+    for layers, snap in snaps.items():
+        snap.mkdir()
+        (snap / "config.json").write_text(mistral_config_json(cfg, layers))
+    t0 = time.perf_counter()
+    want, files, nbytes = write_bf16_snapshot(seed, dev, snaps[deep], cfg)
+    write_s = time.perf_counter() - t0
+    for layers, snap in snaps.items():
+        if layers != deep:
+            for f in files[:layers + 1]:
+                (snap / f.name).symlink_to(f)
+    log(f"BF16 (6d′): snapshot of Mistral-Nemo-12B's widths at {deep} "
+        f"layers (untied head) written in {write_s:.2f} s: "
+        f"{nbytes / 1e9:.2f} GB of BF16 in {len(files)} files")
+    outs = {layers: base / f"mistral_{layers}l_int8.npz"
+            for layers in BF16_LAYERS}
+    conv = dict(zip(BF16_LAYERS, convert_snapshots(
+        [(snaps[n], outs[n], "decoder", ("--quantize-int8",))
+         for n in BF16_LAYERS])))
+    for layers, c in conv.items():
+        check(c["peak_gb"] is not None,
+              "the converter's peak resident memory was not read")
+        log(f"BF16 (6d′): convert_weights decoder --quantize-int8 at "
+            f"{layers} layer(s) in {c['seconds']:.2f} s (the depths side "
+            f"by side), npz {c['npz_bytes'] / 1e9:.3f} GB, peak resident "
+            f"{fmt_gb(c['peak_gb'])}")
+        if layers != deep:
+            outs[layers].unlink()
+    lo, hi = min(BF16_LAYERS), deep
+    per_layer = (conv[hi]["peak_gb"] - conv[lo]["peak_gb"]) / (hi - lo)
+    projected = conv[hi]["peak_gb"] + (published.num_layers - hi) \
+        * per_layer
+    int8_layer_gb = sum(
+        a.nbytes for a in flatten_params(want["layer_0"]).values()) / 1e9
+    log(f"BF16 (6d′): peak {per_layer:.3f} GB a layer (the int8 kernels "
+        f"it keeps: {int8_layer_gb:.3f} GB) → {projected:.2f} GB at "
+        f"{published.num_layers} layers (limit {HOST_LIMIT_GB} GB)")
+    check(0 < projected < HOST_LIMIT_GB,
+          f"the converter would hold {projected:.2f} GB at "
+          f"{published.num_layers} layers")
+
+    # read once: compared here, then loaded as the factory loads it
+    converted = load_params_npz(outs[deep])
+    got, flat = flatten_params(converted["params"]), flatten_params(want)
+    check(sorted(got) == sorted(flat),
+          f"npz keys {sorted(set(got) ^ set(flat))[:6]}")
+    for key, value in flat.items():
+        check(got[key].dtype == value.dtype
+              and got[key].shape == value.shape
+              and np.array_equal(got[key].view(np.uint8),
+                                 value.view(np.uint8)),
+              f"BF16 (6d′): {key} differs from the in-process conversion")
+    n_int8 = sum(k.endswith("kernel_q") for k in flat)
+    del got
+
+    ids = torch.as_tensor(np.random.default_rng(seed).integers(
+        4, cfg.vocab_size, (2, 64)), device=dev)
+    lens = torch.tensor([64, 40], device=dev)
+    logits = {}
+    for label, params in (("npz", converted),
+                          ("in process", {"params": want})):
+        llm = TPULLMProvider(cfg, params=params, device=dev)
+        model = llm.generator.load()
+        check(model.lm_head.weight_q.dtype == torch.int8
+              and model.embed_tokens.weight.dtype == torch.float32,
+              f"BF16 (6d′): the {label} model's head / embedding")
+        logits[label] = llm.generator._prefill(ids, lens)[0].float().cpu()
+        del llm, model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(torch.isfinite(logits["npz"]).all()
+          and tuple(logits["npz"].shape) == (2, cfg.vocab_size),
+          f"BF16 (6d′): logits {tuple(logits['npz'].shape)}")
+    check(torch.equal(logits["npz"], logits["in process"]),
+          "BF16 (6d′): the converted model's logits are not the in-process "
+          "model's bits")
+    del want, flat, converted
+    seconds = time.perf_counter() - t_phase
+    log(f"BF16 (6d′): {n_int8} int8 kernels and every f32 tensor equal to "
+        f"the in-process conversion; the npz loaded as llm.mode: tpu "
+        f"loads a checkpoint, prefill logits [2, {cfg.vocab_size}] finite "
+        f"and bit-equal to the in-process model's; phase {seconds:.1f} s")
+    return {"layers": list(BF16_LAYERS),
+            "snapshot_gb": nbytes / 1e9, "write_s": write_s,
+            "convert_s": {n: c["seconds"] for n, c in conv.items()},
+            "peak_gb": {n: c["peak_gb"] for n, c in conv.items()},
+            "peak_gb_per_layer": per_layer,
+            "int8_gb_per_layer": int8_layer_gb,
+            "projected_peak_gb_40_layers": projected,
+            "npz_gb": conv[deep]["npz_bytes"] / 1e9,
+            "int8_kernels": n_int8, "phase_s": seconds}
 
 
 @contextlib.contextmanager
@@ -3329,7 +3631,6 @@ def serve_http(stack, questions, dev, seed: int,
     equal to the unbatched search), /v1/embeddings, /stats and /metrics;
     then the CLI's `eval --limit CLI_EVAL_LIMIT` in a subprocess on the
     card."""
-    import struct
     import threading
 
     import numpy as np
@@ -3355,7 +3656,7 @@ def serve_http(stack, questions, dev, seed: int,
         f"cross-encoder "
         f"{(rr_dir / 'pytorch_model.bin').stat().st_size / 1e9:.2f} GB")
     npz = snaps / "bge_m3.npz"
-    conv = convert_snapshot(m3_dir, npz)
+    (conv,) = convert_snapshots([(m3_dir, npz, "bge-m3", ())])
     log(f"serve, HTTP: convert_weights bge-m3 in {conv['seconds']:.2f} s, "
         f"npz {conv['npz_bytes'] / 1e9:.3f} GB, converter peak resident "
         f"memory {fmt_gb(conv['peak_gb'])}; it printed "
@@ -3979,6 +4280,7 @@ def serve_generate(stack, questions, dev, seed: int) -> dict:
         f"forwards, {spec_ms:.1f} ms with its prefill; peak device memory "
         f"{peak_gb:.2f} GB in phase 6e ({before / 1e9:.2f} GB held before "
         f"it)")
+    judge = serve_judge(llm, dev)
     out = {"tiny_max_gap": tiny, "init_s": init_s, "weight_gb": weight_gb,
            "int8_gb": int8_gb, "embedding_gb": embed_gb,
            "peak_device_gb": peak_gb, "prefill_ms": prefill_ms,
@@ -3987,10 +4289,55 @@ def serve_generate(stack, questions, dev, seed: int) -> dict:
            "answer_retrieval_rerank_ms": retrieve * 1e3,
            "answer_generation_ms": generate * 1e3,
            "answer_prompt_tokens": lengths, "agent_ms": agent_s * 1e3,
-           "agent_choose_calls": len(chosen), "launches": launches}
+           "agent_choose_calls": len(chosen), "launches": launches,
+           "judge": judge}
     del gstack, llm, gen, model, state, pipe, agent, prefill, recording, \
         choose, counting
     return out
+
+
+def serve_judge(llm, dev) -> dict:
+    """Phase 6e′ (inside 6e, on its 12B): `evals/judge_axis.py::
+    run_judge_axis` over the first JUDGE_QUESTIONS questions: the hermetic
+    v2 stack with the committed trained encoder, the 12B as the judge in
+    choose mode. Every score must be non-None (the first exception the
+    judge raised is printed), every traced bucket one of
+    `JUDGE_SCORE_BUCKETS` and every veto "non" or "oui"; the stack's
+    queries launch K3 and K4 and no twin may run."""
+    from rag_dpo_tpu_torch.evals.harness import JUDGE_SCORE_BUCKETS
+    from rag_dpo_tpu_torch.evals.judge_axis import run_judge_axis, verdict
+    from rag_dpo_tpu_torch.ops import _kernels
+
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    record = run_judge_axis(llm, JUDGE_QUESTIONS, dev)
+    seconds = time.perf_counter() - t0
+    launches = {n: _kernels.LAUNCHES[n] for n in ("ell_topk", "fused_topk")}
+    plain = dict(_kernels.PLAIN_ON_CUDA)
+    code, line = verdict(record)
+    check(code == 0, f"judge (6e′): {line}; first judge error: "
+                     f"{record['first_judge_error']}")
+    check(len(record["bucket_sample"]) == JUDGE_QUESTIONS
+          and set(record["bucket_sample"]) <= set(JUDGE_SCORE_BUCKETS)
+          and set(record["veto_sample"]) <= {"non", "oui"},
+          f"judge (6e′): buckets {record['bucket_sample']}, vetoes "
+          f"{record['veto_sample']}")
+    check(all(launches.values()) and not any(plain.values()),
+          f"judge (6e′): launches {launches}, plain twins {plain}")
+    per_q = record["judge_seconds_per_question"]
+    log(f"judge (6e′): {record['n_judged_non_null']}/{record['n_questions']}"
+        f" judged by the 12B in choose mode, {record['judge_calls']} choose "
+        f"calls in {record['judge_seconds']:.2f} s = {per_q:.3f} s a "
+        f"question; mean {record['judge_mean']}, buckets "
+        f"{record['bucket_sample']}, vetoes {record['veto_sample']}; global "
+        f"score with the judge {record['global_score_with_judge']}; "
+        f"launches {launches}; phase {seconds:.1f} s")
+    return {k: record[k] for k in (
+        "n_questions", "n_judged_non_null", "judge_mean", "bucket_sample",
+        "veto_sample", "judge_vetoes_sample", "global_score_with_judge",
+        "judge_seconds", "judge_seconds_per_question", "judge_calls",
+        "judge_wall_seconds")} | {"launches": launches, "phase_s": seconds}
+
 
 
 def solo_run(gen, ids, max_new: int, temperature: float, seed: int) -> list:
@@ -5015,8 +5362,152 @@ def run_hermetic(dev) -> dict:
     return out
 
 
+def run_quality_loop(dev) -> dict:
+    """Phase 8b: `python -m rag_dpo_tpu_torch.evals.train_encoder`'s body
+    on the card: LOOP_STEPS steps of the committed record's recipe (the
+    tiny encoder, plain in-batch InfoNCE), the npz written to `TMPDIR` and
+    loaded back, then the replay of the 48 questions three times with it.
+    The loss must fall, the npz's leaves be finite, K3 and K4 launch with
+    no twin, and true_doc@5 beat the best committed random-init record;
+    the trained gate's verdict is checked where LOOP_GATE_HELD, else
+    logged (ROADMAP C-36)."""
+    import numpy as np
+
+    from rag_dpo_tpu_torch.evals.hermetic import (
+        baseline_from_records,
+        comparable_records,
+        gated_values,
+        load_committed_records,
+    )
+    from rag_dpo_tpu_torch.evals.train_encoder import (
+        gate,
+        load_trained_params,
+        train_and_replay,
+    )
+    from rag_dpo_tpu_torch.models.convert import flatten_params
+    from rag_dpo_tpu_torch.ops import _kernels
+
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ragdpo_loop_") as tmp:
+        out = pathlib.Path(tmp) / "trained_encoder_v2.npz"
+        metrics, record = train_and_replay(out, LOOP_STEPS, device=dev)
+        leaves = flatten_params(load_trained_params(out))
+    seconds = time.perf_counter() - t0
+    launches = {n: _kernels.LAUNCHES[n] for n in ("ell_topk", "fused_topk")}
+    plain = dict(_kernels.PLAIN_ON_CUDA)
+    check(metrics["loss_last"] < metrics["loss_first"],
+          f"loop (8b): the loss did not fall: {metrics}")
+    check(all(np.isfinite(v).all() for v in leaves.values()),
+          "loop (8b): a non-finite weight in the npz")
+    check(all(launches.values()) and not any(plain.values()),
+          f"loop (8b): launches {launches}, plain twins {plain}")
+    vals = gated_values(record)
+    rand = baseline_from_records(comparable_records(
+        load_committed_records(), dict(record, encoder="random-init")))
+    check(vals["true_doc_hit_rate_at_5"] > rand["true_doc_hit_rate_at_5"],
+          f"loop (8b): true_doc@5 {vals['true_doc_hit_rate_at_5']} does "
+          f"not beat random-init's {rand['true_doc_hit_rate_at_5']}")
+    code, lines = gate(record)
+    if LOOP_GATE_HELD:
+        check(code == 0, f"loop (8b): {lines}")
+    log(f"loop (8b): {LOOP_STEPS} steps in {metrics['train_seconds']:.2f} "
+        f"s = {metrics['steps_per_s']:.1f} steps/s, loss "
+        f"{metrics['loss_first']} → {metrics['loss_last']}; replay ×3: "
+        f"{json.dumps(vals)}; true_doc@5 beats random-init's "
+        f"{rand['true_doc_hit_rate_at_5']}; trained gate: "
+        + " / ".join(lines[1:])
+        + ("" if LOOP_GATE_HELD else " (logged, not checked: ROADMAP C-36)")
+        + f"; launches {launches}; phase {seconds:.1f} s")
+    return {"train_s": metrics["train_seconds"],
+            "steps_per_s": metrics["steps_per_s"],
+            "loss_first": metrics["loss_first"],
+            "loss_last": metrics["loss_last"], "gated": vals,
+            "random_init_true_doc_at_5": rand["true_doc_hit_rate_at_5"],
+            "trained_gate": lines[-1], "trained_gate_code": code,
+            "launches": launches, "phase_s": seconds}
+
+
+def run_front_doors(dev) -> dict:
+    """The Quick start's commands on the card: `python -m
+    rag_dpo_tpu_torch.check_install` in a subprocess (rc 0, "Prêt.", K4
+    launched by its device program), then `python -m
+    rag_dpo_tpu_torch.app.rag_cli --canned` through `runpy` in this
+    process, its launches counted from 0, on the demo stack and with
+    `--index` over a saved copy of the demo index: 5/5 answered each time,
+    K4 launched, no twin. Neither runs K3, in either package: the demo
+    stack's summary prefilter masks the sparse arm, which a small store
+    scores in full and masks, and `--index` has no BM25 stats."""
+    import io
+    import runpy
+
+    from rag_dpo_tpu_torch.app.demo import build_demo_stack
+    from rag_dpo_tpu_torch.ops import _kernels
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ragdpo_doors_") as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT), RAGDPO_TPU_ROOT=tmp)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rag_dpo_tpu_torch.check_install"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        out["check_install_s"] = time.perf_counter() - t0
+        printed = proc.stdout.strip()
+        k4 = re.search(r"noyau fused_topk: (\d+) lancement", printed)
+        check(proc.returncode == 0 and printed.endswith("Prêt.") and k4
+              and int(k4.group(1)) > 0,
+              f"check_install exited {proc.returncode}: {printed[-2000:]} "
+              f"{proc.stderr[-2000:]}")
+        out["check_install_k4_launches"] = int(k4.group(1))
+        log("front doors: check_install in "
+            f"{out['check_install_s']:.1f} s:\n" + printed)
+
+        _, demo = build_demo_stack(device=dev)
+        demo["index"].save(pathlib.Path(tmp) / "index")
+        del demo
+        for label, args in (("demo", []),
+                            ("index", ["--index", f"{tmp}/index"])):
+            _kernels.reset_counts()
+            buf = io.StringIO()
+            argv = sys.argv
+            t0 = time.perf_counter()
+            try:
+                sys.argv = ["rag_cli", "--canned", *args]
+                with environ(RAGDPO_TPU_ROOT=tmp), \
+                        contextlib.redirect_stdout(buf):
+                    runpy.run_module("rag_dpo_tpu_torch.app.rag_cli",
+                                     run_name="__main__")
+                code = 0
+            except SystemExit as e:
+                code = e.code
+            finally:
+                sys.argv = argv
+            seconds = time.perf_counter() - t0
+            launches = {n: _kernels.LAUNCHES[n]
+                        for n in ("ell_topk", "fused_topk")}
+            plain = dict(_kernels.PLAIN_ON_CUDA)
+            summary = buf.getvalue().strip().splitlines()[-1]
+            check(code == 0 and summary.startswith("==== 5/5 ok"),
+                  f"rag_cli --canned {args} exited {code}: "
+                  f"{buf.getvalue()[-2000:]}")
+            # K4 only: the demo stack's summary prefilter masks the sparse
+            # arm, which a small store then scores in full and masks, as
+            # JAX's does (rag_dpo_tpu/index/store.py:780-783), and
+            # `--index` builds no BM25 arm (no stats), as the root script
+            check(launches["fused_topk"] and not any(plain.values()),
+                  f"rag_cli {label}: launches {launches}, plain twins "
+                  f"{plain}")
+            log(f"front doors: rag_cli --canned {' '.join(args)} in "
+                f"{seconds:.1f} s: {summary}; launches {launches}")
+            out[f"rag_cli_{label}"] = {"seconds": seconds,
+                                       "summary": summary,
+                                       "launches": launches}
+    return out
+
+
 @functools.lru_cache(maxsize=1)
 def train_pairs() -> tuple:
+
     """The recipe's training pairs over the synthetic corpus and a mined
     hard negative for each (phases 9 and 9b)."""
     from rag_dpo_tpu_torch.evals.synthetic import build_synthetic_corpus
@@ -5569,6 +6060,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash.update(time_serve_flash(dev, gen, path.pop("flash_shapes")))
     hermetic = run_hermetic(dev)
+    loop = run_quality_loop(dev)
     gc.collect()
     torch.cuda.empty_cache()
     train = run_train(args.seed, dev)
@@ -5587,6 +6079,17 @@ def main() -> int:
                    for r in train_mesh[f"gloo_{label}"]["ranks"]]
                   for label, _ in MESH_TRAIN_LAYOUTS}}
         for name in TRAIN_KERNELS}
+    doors = run_front_doors(dev)
+    new_phases_s = {
+        "bf16_conversion": path["bf16"]["phase_s"],
+        "judge": path["generate"]["judge"]["phase_s"],
+        "quality_loop": loop["phase_s"],
+        "front_doors": doors["check_install_s"]
+        + doors["rag_cli_demo"]["seconds"]
+        + doors["rag_cli_index"]["seconds"]}
+    log(f"the BF16, judge, loop and front-door phases: "
+        f"{json.dumps(new_phases_s)}, "
+        f"{sum(new_phases_s.values()):.1f} s in all")
 
     # the agent's and the concurrent phase's launches of the serve kernels
     serve_phase_launches = {
@@ -5723,6 +6226,9 @@ def main() -> int:
                        if k not in ("launches", "plain_on_cuda")},
                     **{f"mesh_{k}": v for k, v in path["mesh"].items()
                        if k not in ("launches", "plain_on_cuda")},
+                    "bf16_conversion": path["bf16"],
+                    "quality_loop": loop, "front_doors": doors,
+                    "front_door_phases_s": new_phases_s,
                     "hermetic_trained": hermetic["none"]["gated"],
                     "hermetic_trained_maxsim": hermetic["maxsim"]["gated"],
                     **{k: v for k, v in train.items()

@@ -9,12 +9,29 @@ torch device or a mesh — the tiny BGE-M3-style encoder with reference
 attention, in-batch InfoNCE with mined hard negatives — and saves the
 checkpoint through `models.convert.save_params_npz`, the npz format both
 packages' `bootstrap.build_stack` and `load_params_npz` read.
+
+The learned-quality loop, one command (`scripts/train_eval_encoder.py`'s):
+
+    python -m rag_dpo_tpu_torch.evals.train_encoder [--device cpu] \
+        [--out PATH] [--steps 800] [--hard-negatives]
+
+trains with the committed trained record's recipe (`plain-inbatch-800`:
+no mined negatives, no grouping; `--hard-negatives` is the reference
+function's default, ROADMAP C-6), writes the npz to `--out` (default under
+`RUNS_DIR`, never into the JAX package's data), replays the 48 questions
+three times with it, saves the record beside the npz, and exits 1 unless
+true_doc@5 beats the best committed random-init record and no gated metric
+falls more than its tolerance below the best committed trained record.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import pathlib
 import re
+import sys
+import time
 
 from ..tokenize.french import tokenize_french_text
 
@@ -24,6 +41,8 @@ _JAX_DATA = pathlib.Path(__file__).resolve().parents[2] / "rag_dpo_tpu" \
     / "evals" / "data"
 QA_DATASET = _JAX_DATA / "qa_dataset.json"
 TRAINED_NPZ = _JAX_DATA / "trained_encoder_v2.npz"
+# where the loop's own checkpoints and records go (git ignores it)
+RUNS_DIR = pathlib.Path(__file__).resolve().parent / "runs"
 
 _KW_LINE = re.compile(r"Mots-clés\s*:\s*(.+?)(?:\.|$)")
 
@@ -168,8 +187,6 @@ def train_eval_encoder(out_npz, steps: int = 800, batch_size: int = 32,
     `DeviceMesh` to train on (every rank calls this), as the reference's
     `create_mesh()`; else `device`. On a mesh the first rank writes the
     npz (the model gathered whole) and every rank returns its numbers."""
-    import json
-
     import torch.distributed as dist
 
     from ..models import BgeM3Config, EncoderConfig
@@ -232,3 +249,89 @@ def load_trained_params(npz_path=TRAINED_NPZ):
     from ..models.convert import load_params_npz
 
     return load_params_npz(npz_path)
+
+
+def train_and_replay(out_npz, steps: int = 800,
+                     hard_negatives: bool = False, device=None) -> tuple:
+    """The loop's body: train with the recipe, replay the 48 questions
+    three times with the new checkpoint. → (train metrics with
+    `train_seconds` and `steps_per_s`, the replay's record)."""
+    from .hermetic import run_hermetic_replay
+
+    t0 = time.perf_counter()
+    metrics = train_eval_encoder(out_npz=out_npz, steps=steps,
+                                 hard_negatives=hard_negatives,
+                                 grouped=False, device=device)
+    seconds = time.perf_counter() - t0
+    metrics.update(train_seconds=seconds, steps_per_s=steps / seconds)
+    record = run_hermetic_replay(
+        n_runs=3, encoder_params=load_trained_params(out_npz),
+        device=device)
+    record["train_recipe"] = (
+        f"{'triplet-mined' if hard_negatives else 'plain-inbatch'}-{steps}")
+    return metrics, record
+
+
+def gate(record: dict, records=None) -> tuple[int, list[str]]:
+    """The script's verdict on a trained record: (exit code, the lines it
+    prints). 1 unless true_doc@5 beats the best committed random-init
+    record, or when a gated metric falls below the best committed trained
+    record by more than its tolerance."""
+    from .hermetic import (
+        baseline_from_records,
+        check_against_baseline,
+        comparable_records,
+        load_committed_records,
+    )
+
+    records = records if records is not None else load_committed_records()
+    lines = []
+    rand = comparable_records(records, dict(record, encoder="random-init"))
+    if rand:
+        base = baseline_from_records(rand)
+        lines.append("random-init best: " + json.dumps(base))
+        if record["true_doc_hit_rate_at_5"] <= \
+                base["true_doc_hit_rate_at_5"]:
+            return 1, lines + ["TRAINED DID NOT BEAT RANDOM-INIT true_doc@5"]
+    failures = check_against_baseline(record, records)
+    if failures:
+        return 1, lines + ["REGRESSION vs committed trained records:",
+                           *(f"  {f}" for f in failures)]
+    return 0, lines + ["gate: OK"]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Train the tiny retrieval encoder on the hermetic "
+                    "corpus, replay the 48 questions with it and gate the "
+                    "record against the committed ones.")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the first CUDA card)")
+    ap.add_argument("--out", type=pathlib.Path,
+                    default=RUNS_DIR / "trained_encoder_v2.npz",
+                    help="the checkpoint to write; the record goes beside "
+                         "it")
+    ap.add_argument("--steps", type=int, default=800)
+    ap.add_argument("--hard-negatives", action="store_true",
+                    help="mine a hard negative a pair (the reference "
+                         "function's default) instead of the committed "
+                         "record's plain in-batch recipe")
+    args = ap.parse_args(argv)
+    from . import EvalHarness
+    from .hermetic import gated_values
+
+    metrics, record = train_and_replay(args.out, args.steps,
+                                       args.hard_negatives, args.device)
+    print("train:", json.dumps(metrics))
+    path = EvalHarness.save_report(None, record, args.out.parent,
+                                   tag="hermetic")
+    print("trained:", json.dumps(gated_values(record)))
+    print(f"saved {path}")
+    code, lines = gate(record)
+    for line in lines:
+        print(line)
+    return code
+
+
+if __name__ == "__main__":
+    sys.exit(main())

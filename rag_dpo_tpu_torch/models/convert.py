@@ -19,11 +19,14 @@ and `save_params_npz` writes it; `load_flax_params` copies a Flax tree
 `LlamaForCausalLM` / `MistralForCausalLM` / `CLIPVisionModel` /
 `LlavaForConditionalGeneration` state dicts (numpy arrays) onto that Flax
 tree; they are the JAX package's pure-numpy converters, copied.
-`models/convert_weights.py` runs them on a local snapshot.
+`models/convert_weights.py` runs them on a local snapshot, whose BF16
+tensors reach them as raw words (`BF16_BITS`) that `float32_leaf` widens
+where a tree's leaf is consumed.
 """
 
 from __future__ import annotations
 
+import mmap
 import re
 
 import numpy as np
@@ -31,6 +34,52 @@ import torch
 from torch import nn
 
 from .encoder import LayerNorm
+
+
+# BF16 tensors as `convert_weights.load_safetensors` reads them: their raw
+# 2-byte words under numpy's unstructured void dtype, which numpy will
+# neither cast to a number nor compute on, so the bits cannot pass for
+# values anywhere; the converters only view, transpose and reshape them.
+BF16_BITS = np.dtype("V2")
+
+
+def float32_leaf(x) -> np.ndarray:
+    """A float leaf of a converted tree as a new f32 array: BF16 words
+    (`BF16_BITS`) widened exactly, each shifted into the high half of a
+    uint32 and read as f32 (the pages of a mapped snapshot are then dropped
+    from this process's resident set); other floats cast. Integer and bool
+    arrays are refused: read as values, raw bits would quietly become
+    numbers."""
+    x = np.asarray(x)
+    if x.dtype == BF16_BITS:
+        wide = np.left_shift(x.view(np.uint16), 16,
+                             dtype=np.uint32).view(np.float32)
+        _drop_mapped_pages(x)
+        return wide
+    if x.dtype.kind in "biu":
+        raise TypeError(f"a {x.dtype} array is not a float tensor: its "
+                        "bits would be quantized as values")
+    return np.array(x, np.float32)
+
+
+def _drop_mapped_pages(x: np.ndarray) -> None:
+    """`madvise(MADV_DONTNEED)` over the pages of `x` where it views a
+    file mapping: a clean file page leaves the resident set and is read
+    again from the page cache if touched, so a snapshot's tensors do not
+    pile up in memory as they are widened one by one."""
+    owner = x
+    while isinstance(owner, np.ndarray):
+        owner = owner.base
+    if isinstance(owner, memoryview):      # np.frombuffer's export
+        owner = owner.obj
+    if not isinstance(owner, mmap.mmap) or x.size == 0:
+        return
+    start = x.__array_interface__["data"][0] - np.frombuffer(
+        owner, np.uint8, count=1).__array_interface__["data"][0]
+    end = start + x.itemsize + sum((n - 1) * abs(s)
+                                   for n, s in zip(x.shape, x.strides))
+    start -= start % mmap.PAGESIZE
+    owner.madvise(mmap.MADV_DONTNEED, start, end - start)
 
 
 def flatten_params(tree: dict, prefix: str = "") -> dict:
@@ -70,6 +119,8 @@ def _as_type(value, dtype):
     leaf in that dtype on its device (no copy where it has it already)."""
     if isinstance(value, torch.Tensor):
         return value.to(torch.from_numpy(np.zeros(0, dtype)).dtype)
+    if getattr(value, "dtype", None) == BF16_BITS:
+        return float32_leaf(value)
     return np.array(value, dtype)
 
 

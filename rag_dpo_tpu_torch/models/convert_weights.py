@@ -20,13 +20,24 @@ f32 `scale`; for `llava` the `decoder/` subtree's). `llava` writes the
 `vision/`, `projector/` and `decoder/` trees that
 `TPULLMProvider.attach_vision(params=...)` installs. This is a host job: it
 touches no device, and needs neither jax nor transformers nor safetensors
-(`*.safetensors` files are read by `load_safetensors`).
+(`*.safetensors` files are mapped by `load_safetensors`).
+
+BF16 snapshots (Mistral-Nemo-12B is published in BF16) convert without
+ml_dtypes: each tensor is widened to f32 exactly where it is consumed, and
+`--quantize-int8` quantizes each widened kernel and drops it before the
+next, so the host holds the int8 output, one f32 kernel and the f32
+embedding, never the widened model. The npz holds f32 wherever the JAX
+script writes bf16 (its `|V2` entries, which `np.load` cannot turn into
+numbers without ml_dtypes); its int8 kernels and scales are the JAX
+script's bits.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import mmap
+import os
 import pathlib
 import struct
 import sys
@@ -34,24 +45,25 @@ import sys
 import numpy as np
 
 from .convert import (
+    BF16_BITS,
     convert_bge_m3_state_dict,
     convert_cross_encoder_state_dict,
     convert_llama_state_dict,
     convert_llava_state_dict,
     flatten_params,
+    float32_leaf,
 )
 
 # the numpy dtype of each safetensors dtype, as `safetensors.numpy` names
-# it: the last three exist only where a package (ml_dtypes, which jax
-# loads) registers them with numpy; elsewhere numpy refuses them, as
-# `load_file` does ("data type 'bfloat16' not understood")
+# it, but BF16: numpy has no bfloat16 unless a package (ml_dtypes, which
+# jax loads) registers one, so its tensors are read as their raw words
+# (`BF16_BITS`) and widened to f32 exactly where the converter consumes
+# them (`convert.float32_leaf`); the npz this writes holds f32 there
 _SAFETENSORS_DTYPES = {
     "F64": "<f8", "F32": "<f4", "F16": "<f2",
     "I64": "<i8", "U64": "<u8", "I32": "<i4", "U32": "<u4",
     "I16": "<i2", "U16": "<u2", "I8": "i1", "U8": "u1",
-    "BOOL": "?", "C64": "<c8",
-    "BF16": "bfloat16", "F8_E4M3": "float8_e4m3fn",
-    "F8_E5M2": "float8_e5m2",
+    "BOOL": "?", "C64": "<c8", "BF16": BF16_BITS,
 }
 
 
@@ -59,29 +71,49 @@ def load_safetensors(path) -> dict[str, np.ndarray]:
     """One `*.safetensors` file → {name: ndarray}, as
     `safetensors.numpy.load_file` gives it: an 8-byte little-endian header
     length, a JSON header of {name: {dtype, shape, data_offsets}}, then
-    the tensors' bytes, each viewed in place."""
-    buf = pathlib.Path(path).read_bytes()
-    if len(buf) < 8:
-        raise ValueError(f"{path}: shorter than a safetensors header")
-    (n,) = struct.unpack("<Q", buf[:8])
-    if 8 + n > len(buf):
-        raise ValueError(f"{path}: header of {n} bytes past the file's end")
-    header = json.loads(buf[8:8 + n])
+    the tensors' bytes. The file is mapped, not read: each tensor is a
+    read-only view of the mapping, paged in when it is used. BF16 tensors
+    come as `BF16_BITS` words; F8 ones are refused."""
+    path = pathlib.Path(path)
+    with open(path, "rb") as f:
+        size = os.fstat(f.fileno()).st_size
+        if size < 8:
+            raise ValueError(f"{path}: shorter than a safetensors header")
+        (n,) = struct.unpack("<Q", f.read(8))
+        if 8 + n > size:
+            raise ValueError(f"{path}: header of {n} bytes past the file's "
+                             "end")
+        header = json.loads(f.read(n))
+        mapped = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
     out = {}
     for name, info in header.items():
         if name == "__metadata__":
             continue
         dtype = info["dtype"]
+        if dtype.startswith("F8"):
+            raise TypeError(f"{path}: {name} is {dtype}; the converter "
+                            "reads F64/F32/F16/BF16 floats, not 8-bit ones")
         np_dtype = np.dtype(_SAFETENSORS_DTYPES.get(dtype, dtype.lower()))
         begin, end = info["data_offsets"]
         shape = tuple(info["shape"])
         count = int(np.prod(shape, dtype=np.int64))
-        if end - begin != count * np_dtype.itemsize or 8 + n + end > len(buf):
+        if end - begin != count * np_dtype.itemsize or 8 + n + end > size:
             raise ValueError(f"{path}: {name} spans bytes [{begin}, {end}) "
                              f"for shape {shape} {dtype}")
-        out[name] = np.frombuffer(buf, np_dtype, count=count,
+        out[name] = np.frombuffer(mapped, np_dtype, count=count,
                                   offset=8 + n + begin).reshape(shape)
     return out
+
+
+class _Widened:
+    """A `BF16_BITS` leaf that `np.savez` widens to f32 only when it
+    writes it, so the npz is written one f32 tensor at a time."""
+
+    def __init__(self, bits):
+        self.bits = bits
+
+    def __array__(self, dtype=None, copy=None):
+        return float32_leaf(self.bits)
 
 
 def load_state_dict(snapshot: pathlib.Path) -> dict:
@@ -157,7 +189,8 @@ def main(argv=None) -> int:
             params = quantize_decoder_params(params)
 
     flat = flatten_params(params)
-    np.savez(args.out, **flat)
+    np.savez(args.out, **{k: _Widened(v) if v.dtype == BF16_BITS else v
+                          for k, v in flat.items()})
     total = sum(v.size for v in flat.values())
     print(f"wrote {args.out}: {len(flat)} arrays, "
           f"{total / 1e9:.2f}B params")

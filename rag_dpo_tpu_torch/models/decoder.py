@@ -208,17 +208,25 @@ def _linear(cfg: DecoderConfig, in_features: int, features: int):
 
 def quantize_decoder_params(params: dict) -> dict:
     """float param tree (Dense kernels) → QuantDense tree (kernel_q +
-    scale), host-side numpy, layer by layer (no double residency)."""
+    scale), host-side numpy, layer by layer (no double residency): each
+    kernel is widened to a new f32 array (BF16 snapshot words exactly, by
+    `convert.float32_leaf`, which refuses integer arrays), quantized in
+    place and dropped before the next. The values are the JAX function's:
+    max |w| is max(max w, −min w), and the division, rounding and clip
+    are the same f32 operations."""
+    from .convert import float32_leaf
 
     def rec(node):
         if isinstance(node, dict):
             if "kernel" in node and getattr(node["kernel"], "ndim", 0) == 2:
-                w = np.asarray(node["kernel"], np.float32)
-                amax = np.maximum(np.abs(w).max(axis=0), 1e-12)
+                w = float32_leaf(node["kernel"])
+                amax = np.maximum(
+                    np.maximum(w.max(axis=0), -w.min(axis=0)), 1e-12)
                 scale = (amax / 127.0).astype(np.float32)
-                q = np.clip(np.round(w / scale[None, :]), -127,
-                            127).astype(np.int8)
-                return {"kernel_q": q, "scale": scale}
+                np.divide(w, scale[None, :], out=w)
+                np.round(w, out=w)
+                np.clip(w, -127, 127, out=w)
+                return {"kernel_q": w.astype(np.int8), "scale": scale}
             return {k: rec(v) for k, v in node.items()}
         return node
 

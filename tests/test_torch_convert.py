@@ -17,8 +17,17 @@ bare `classifier.weight` head), saved as `*.safetensors` and as
   `save_pretrained` writes, as safetensors, and the flattened one of its
   `state_dict()` since 4.52, as .bin), float and `--quantize-int8`; `llava`
   and `decoder` on a snapshot that holds neither exit 2;
-* its safetensors reader gives what `safetensors.numpy.load_file` gives
-  and refuses BF16 as that function does;
+* its safetensors reader gives what `safetensors.numpy.load_file` gives;
+  BF16 tensors come as raw words that numpy refuses to read as numbers
+  until `convert.float32_leaf` widens them, to the bits the library gives
+  where ml_dtypes is loaded (here), and in the refusing subprocess, where
+  it is not; F8 tensors are refused;
+* a tiny BF16 `MistralForCausalLM` snapshot converts as `decoder`, float
+  and `--quantize-int8`, in that subprocess: the int8 kernels and scales
+  are the JAX script's bits, every other tensor is f32 equal to the JAX
+  script's bf16 widened (it writes them as `|V2` entries, which numpy
+  cannot read as numbers: ROADMAP C-35); the quantizer never takes BF16
+  words or an integer array as values;
 * `Embedder.load_converted` (dense, sparse, ColBERT) and
   `CrossEncoderReranker.load_converted` score within 1e-5 of the JAX
   package's `load_converted`, and the port's encoder within 1e-5 of HF's
@@ -47,7 +56,9 @@ from rag_dpo_tpu.retrieval.reranker import (
 )
 from rag_dpo_tpu_torch.models import BgeM3Config, EncoderConfig
 from rag_dpo_tpu_torch.models.convert import (
+    BF16_BITS,
     convert_xlmr_state_dict,
+    float32_leaf,
     load_flax_params,
 )
 from rag_dpo_tpu_torch.models.convert_weights import (
@@ -92,11 +103,18 @@ DECODER_CASES = [("mistral_safetensors", []),
 LLAVA_CASES = [("llava_safetensors", []),
                ("llava_safetensors", ["--quantize-int8"]),
                ("llava_bin_flat", [])]
+# the BF16 decoder CLI cases: extra arguments
+BF16_CASES = [[], ["--quantize-int8"]]
 _LLAMA_KW = dict(vocab_size=256, hidden_size=32, intermediate_size=64,
                  num_hidden_layers=2, num_attention_heads=4,
                  num_key_value_heads=2, max_position_embeddings=64,
                  rms_norm_eps=1e-5, rope_theta=10000.0,
                  tie_word_embeddings=False)
+
+
+# a few BF16 values: signs, a subnormal, the largest finite, infinity
+BF16_VALUES = torch.tensor([[0.0, -1.5, 3.140625],
+                            [1e-40, -3.3895e38, float("inf")]])
 
 
 def _decoder_out(root, snap, extra, who):
@@ -190,6 +208,10 @@ def snaps(tmp_path_factory):
     # save_pretrained writes the legacy layout (language_model.model.*);
     # the model's own state_dict is the flattened one (model.*, lm_head)
     llava.save_pretrained(root / "llava_safetensors", safe_serialization=True)
+    torch.manual_seed(9)
+    MistralForCausalLM(MistralConfig(sliding_window=None, **_LLAMA_KW)
+                       ).to(torch.bfloat16).save_pretrained(
+        root / "mistral_bf16", safe_serialization=True)
     (root / "llava_bin_flat").mkdir()
     torch.save(llava.state_dict(), root / "llava_bin_flat" / "pytorch_model.bin")
     return dict(root=root, m3=m3, sparse=sparse, colbert=colbert, rr=rr,
@@ -218,11 +240,10 @@ _REFUSING_RUN = textwrap.dedent("""
                              run_name="__main__")
         except SystemExit as e:
             codes.append(e.code)
+    from rag_dpo_tpu_torch.models.convert import float32_leaf
     from rag_dpo_tpu_torch.models.convert_weights import load_safetensors
-    try:
-        load_safetensors(bf16)
-    except TypeError as e:
-        print("BF16 TypeError:", e)
+    print("BF16\t" + json.dumps(
+        float32_leaf(load_safetensors(bf16)["w"]).tolist()))
     bad = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "flax", "transformers", "safetensors", "rag_dpo_tpu",
         "ml_dtypes")]
@@ -247,13 +268,16 @@ def port_cli(snaps):
     argvs += [["llava", str(root / snap),
                str(_decoder_out(root, snap, extra, "port")), *extra]
               for snap, extra in LLAVA_CASES]
+    argvs += [["decoder", str(root / "mistral_bf16"),
+               str(_decoder_out(root, "mistral_bf16", extra, "port")),
+               *extra] for extra in BF16_CASES]
     script = root / "refusing.py"
     script.write_text(_REFUSING_RUN)
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     from safetensors.torch import save_file
 
     bf16 = root / "bf16.safetensors"
-    save_file({"w": torch.zeros(2, 3, dtype=torch.bfloat16)}, bf16)
+    save_file({"w": BF16_VALUES.to(torch.bfloat16)}, bf16)
     proc = subprocess.run([sys.executable, str(script), json.dumps(argvs),
                            str(bf16)],
                           capture_output=True, text=True, env=env,
@@ -400,24 +424,116 @@ def test_safetensors_reader_matches_the_library(tmp_path, dtype):
 
 
 def test_safetensors_reader_takes_bf16_as_the_library(tmp_path):
-    """BF16: numpy knows the dtype only where ml_dtypes registered it (jax
-    loads it, as here): then both give the same array; elsewhere both
-    raise (the refusing subprocess of `port_cli`)."""
+    """BF16: the library gives ml_dtypes' bfloat16 where that package is
+    loaded (jax loads it, as here); the port's reader gives the raw words
+    whatever is loaded, which numpy will not cast or compute on, and
+    `float32_leaf` widens them to the library's values bit for bit."""
     import ml_dtypes  # noqa: F401 — registers bfloat16 with numpy
     from safetensors.numpy import load_file
     from safetensors.torch import save_file
 
     path = tmp_path / "bf16.safetensors"
-    save_file({"w": torch.arange(6, dtype=torch.bfloat16).view(2, 3)}, path)
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((4, 6)).astype(np.float32))
+    save_file({"w": (w * 1e3).to(torch.bfloat16),
+               "v": BF16_VALUES.to(torch.bfloat16)}, path)
     want, got = load_file(path), load_safetensors(path)
-    assert got["w"].dtype == want["w"].dtype == np.dtype("bfloat16")
-    np.testing.assert_array_equal(got["w"].astype(np.float32),
-                                  want["w"].astype(np.float32))
+    for name in ("w", "v"):
+        assert want[name].dtype == np.dtype("bfloat16")
+        assert got[name].dtype == BF16_BITS
+        assert got[name].tobytes() == want[name].tobytes()
+        wide = float32_leaf(got[name])
+        assert wide.dtype == np.float32
+        assert wide.tobytes() == want[name].astype(np.float32).tobytes()
+        assert float32_leaf(got[name].T).tobytes() \
+            == want[name].T.astype(np.float32).tobytes()
+    with pytest.raises(ValueError):
+        np.asarray(got["w"], np.float32)
+    with pytest.raises(TypeError):
+        np.abs(got["w"])
 
 
 def test_safetensors_reader_refuses_bf16_without_ml_dtypes(port_cli):
+    """Without ml_dtypes (the card's case, the refusing subprocess) the
+    reader no longer refuses BF16: the widened values are bfloat16's."""
     _, stdout, _ = port_cli
-    assert "BF16 TypeError: data type 'bfloat16' not understood" in stdout
+    (line,) = [ln for ln in stdout.splitlines() if ln.startswith("BF16\t")]
+    got = np.asarray(json.loads(line.split("\t")[1]), np.float32)
+    want = BF16_VALUES.to(torch.bfloat16).float().numpy()
+    assert got.tobytes() == want.tobytes()
+
+
+def test_safetensors_reader_refuses_f8(tmp_path):
+    from safetensors.torch import save_file
+
+    path = tmp_path / "f8.safetensors"
+    save_file({"w": torch.zeros(2, 3).to(torch.float8_e4m3fn)}, path)
+    with pytest.raises(TypeError, match="F8_E4M3"):
+        load_safetensors(path)
+
+
+@pytest.mark.parametrize("extra", BF16_CASES)
+def test_port_cli_converts_bf16_decoders_as_the_jax_script(
+        snaps, port_cli, monkeypatch, capsys, extra):
+    """The JAX script reads BF16 through ml_dtypes (jax loads it) and
+    writes bf16 leaves as `|V2`; the port, with ml_dtypes refused, writes
+    those as f32 equal to them widened, and the quantized kernels and
+    scales bit for bit."""
+    root = snaps["root"]
+    jax_out = _decoder_out(root, "mistral_bf16", extra, "jax")
+    monkeypatch.setattr(sys, "argv", ["convert_weights.py", "decoder",
+                                      str(root / "mistral_bf16"),
+                                      str(jax_out), *extra])
+    assert _jax_script().main() == 0
+    jax_print = capsys.readouterr().out
+    codes, port_print, _ = port_cli
+    assert codes[-len(BF16_CASES) + BF16_CASES.index(extra)] == 0
+    port_out = _decoder_out(root, "mistral_bf16", extra, "port")
+    for line in jax_print.splitlines():
+        assert line.replace(str(jax_out), str(port_out)) in port_print
+    want, got = np.load(jax_out), np.load(port_out)
+    assert sorted(got.files) == sorted(want.files)
+    assert any(k.endswith("/kernel_q") for k in got.files) == bool(extra)
+    assert "lm_head/kernel_q" in got.files or not extra
+    n_widened = 0
+    for key in want.files:
+        w, g = want[key], got[key]
+        assert g.shape == w.shape, key
+        if w.dtype.kind == "V":      # bf16 in the JAX script's npz
+            n_widened += 1
+            assert g.dtype == np.float32, key
+            wide = (w.view(np.uint16).astype(np.uint32) << 16).view(
+                np.float32)
+            assert g.tobytes() == wide.tobytes(), key
+        else:
+            assert g.dtype == w.dtype and g.tobytes() == w.tobytes(), key
+    # the quantized npz keeps the embedding and the norms in bf16 there;
+    # the float one every tensor
+    assert n_widened == (2 * 2 + 2 if extra else len(want.files))
+
+
+def test_bf16_words_are_never_quantized_as_values():
+    from rag_dpo_tpu_torch.models.decoder import quantize_decoder_params
+
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.standard_normal((8, 6)).astype(np.float32))
+    words = w.to(torch.bfloat16).view(torch.int16).numpy().view(BF16_BITS)
+    wide = w.to(torch.bfloat16).float().numpy()
+
+    def tree(kernel):
+        return {"layer_0": {"up_proj": {"kernel": kernel}},
+                "embed_tokens": {"embedding": kernel}}
+
+    got = quantize_decoder_params(tree(words.T))
+    want = quantize_decoder_params(tree(wide.T))
+    for leaf in ("kernel_q", "scale"):
+        assert got["layer_0"]["up_proj"][leaf].tobytes() \
+            == want["layer_0"]["up_proj"][leaf].tobytes()
+    assert got["embed_tokens"]["embedding"].dtype == BF16_BITS
+    with pytest.raises(TypeError, match="not a float tensor"):
+        quantize_decoder_params(tree(words.view(np.uint16).T))
+    with pytest.raises(ValueError):
+        np.asarray(words, np.float32)
 
 
 def _ids():

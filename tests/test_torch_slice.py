@@ -6,8 +6,10 @@ slice 14's corpus-build modules, with bs4 and lxml refused too, as the
 card's machine has neither, slice 15's HF conversion and demo server,
 with transformers and safetensors refused, slice 18's image request
 through a tiny `attach_vision` on the continuous pool, slice 19's mesh
-modules: a gloo world of one through a row-sharded store, and slice 20's
-sharded train step on it).
+modules: a gloo world of one through a row-sharded store, slice 20's
+sharded train step on it, and the last front doors, with ml_dtypes
+refused too: a BF16 safetensors tensor read and widened, the loop, the
+judge axis, `check_install` and the question CLI).
 
 Both stacks use the same exported Flax parameters (tiny encoder in
 reference-attention mode and ELL width 48, as `evals/hermetic.py` builds
@@ -156,7 +158,7 @@ BLOCKED_RUN = textwrap.dedent("""
             top = name.split(".")[0]
             if top in ("jax", "jaxlib", "flax", "optax", "orbax",
                        "transformers", "safetensors", "rag_dpo_tpu", "bs4",
-                       "lxml"):
+                       "lxml", "ml_dtypes"):
                 raise ImportError(f"refused: {name}")
             return None
 
@@ -442,10 +444,24 @@ BLOCKED_RUN = textwrap.dedent("""
     sh_state, sh_metrics = sh_step(sh_state, batcher.batch_at(0))
     assert sh_state.step == 1 and float(sh_metrics["loss"]) > 0
 
+    # the last front doors: a BF16 snapshot tensor read and
+    # widened without ml_dtypes, the loop, the judge axis, check_install
+    # and the question CLI
+    from rag_dpo_tpu_torch import check_install  # noqa: F401
+    from rag_dpo_tpu_torch.app import rag_cli  # noqa: F401
+    from rag_dpo_tpu_torch.evals import judge_axis  # noqa: F401
+    from rag_dpo_tpu_torch.evals.train_encoder import main as loop_main
+    from rag_dpo_tpu_torch.models.convert import float32_leaf
+    from rag_dpo_tpu_torch.models.convert_weights import load_safetensors
+    assert callable(loop_main)
+    words = load_safetensors(sys.argv[3])["w"]
+    assert float32_leaf(words).tolist() == [[1.5, -2.0], [0.0, 2.0 ** 127]]
+
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
                                   "transformers", "safetensors",
-                                  "rag_dpo_tpu", "bs4", "lxml")]
+                                  "rag_dpo_tpu", "bs4", "lxml",
+                                  "ml_dtypes")]
     assert not bad, bad
     print("OK", len(resp.sources), len(cb_resp.sources))
 """)
@@ -473,9 +489,14 @@ def test_port_runs_with_jax_refused_at_import(tmp_path):
     script = tmp_path / "blocked.py"
     script.write_text(BLOCKED_RUN)
     snapshot = _tiny_hf_snapshot(tmp_path / "snapshot")
+    from safetensors.torch import save_file
+
+    bf16 = tmp_path / "bf16.safetensors"
+    save_file({"w": torch.tensor([[1.5, -2.0], [0.0, 2.0 ** 127]]).to(
+        torch.bfloat16)}, bf16)
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, str(script), str(DATASET),
-                           str(snapshot)],
+                           str(snapshot), str(bf16)],
                           capture_output=True, text=True, env=env,
                           cwd=tmp_path, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
