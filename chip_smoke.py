@@ -40,6 +40,14 @@ Phases, in order; any failure exits non-zero before the result lines:
    training shape and others (Dh 80 and 320 too); timed with CUDA events
    and the profiler, beside each kernel's bound and, where one PyTorch
    call computes the same function, that call's time and device time;
+3c. seeded init — `models/flax_init.py` on the card: its Triton draw
+   (threefry bits) bit for bit against its twin (int64 torch ops) at
+   counters past 2³² and in a weight's transposed order, both timed over
+   the 12B's widest int8 kernel; then the tiny BGE-M3, the cross-encoder,
+   the ViT + LLaVA projector and the tiny int8 decoder made from one seed
+   on the card and on the CPU: uniforms bit-equal, f32 leaves within
+   INIT_ULPS (2), int8 kernels equal but a share ≤ 1e-4 one off; the draw
+   must launch;
 3b. store limits — a 50,000-row index at dim 1536, bf16 and int8, through
    `search_dense(k=512)` and `search_sparse` with 100 terms: K4 (bf16)
    and K3 must launch and no twin may run; the int8 ids must be the CPU
@@ -202,7 +210,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    greedy token with an image within `DECODER_TOL` of one full forward's
    maximum, one image request in a 4-slot pool beside 3 text requests at
    its direct run (C-29); (c) `attach_vision()` on the pool's provider:
-   CLIP-ViT-L/14-336 and the 1024 → 5120 → 5120 projector from `--seed`;
+   CLIP-ViT-L/14-336 and the 1024 → 5120 → 5120 projector from key 0, as
+   JAX's `LlavaGenerator.load` draws them;
    on loopback, one `/v1/chat/completions` with a 336×336 PNG as a
    `data:` URL, one streamed with a 480×320 PNG, then the first image
    again, streamed, while VISION_BESIDE text `/query` are in flight: its
@@ -236,16 +245,17 @@ Phases, in order; any failure exits non-zero before the result lines:
    encoders in bf16 beside f32's;
 8. hermetic — the port's hermetic replay with the committed trained
    encoder must pass the gate against the committed trained records; then
-   its MaxSim arm, where K3, K4 and K7 must launch and no twin may run. (The
-   random-init record needs Flax's initialisation, which only jax makes:
-   it is gated by a CPU test.)
+   with the port's own seeded init (`encoder_params=None`, Flax's weights
+   from the same seed, `models/flax_init.py`) against the committed
+   random-init record; then its MaxSim arm. K3 and K4 (and K7 in the
+   MaxSim arm) must launch and no twin may run;
 8b. the learned-quality loop — `evals/train_encoder.py::train_and_replay`
-   on the card: 800 steps of the committed trained record's recipe (the
-   tiny encoder, plain in-batch InfoNCE), its npz written and loaded back,
-   the replay ×3 with it: the loss must fall, K3 and K4 launch with no
-   twin, true_doc@5 beat the best committed random-init record; the
-   trained gate's verdict is logged (ROADMAP C-36: the port's own
-   initialisation misses it, on the CPU and on the card);
+   on the card from the Flax-equal init: 800 steps of the committed
+   trained record's recipe (the tiny encoder, plain in-batch InfoNCE), its
+   npz written and loaded back, the replay ×3 with it: the loss must fall,
+   K3 and K4 launch with no twin, true_doc@5 beat the best committed
+   random-init record; the trained gate's verdict is checked
+   (LOOP_GATE_HELD);
 9. train — contrastive training of a full-width BGE-M3 (f32, flash on) on
    16 pairs x 192 tokens with one mined hard negative each, through
    `train_retriever`: 2 steps and a checkpoint, then a resume to step 4;
@@ -368,10 +378,10 @@ GEN_NEW_TOKENS, DECODE_NEW_TOKENS, DECODE_BATCHES = 32, 64, (1, 8)
 # whole smoke, phase 6f included, keep a 900 s chip call's margin; from 2
 # to 1, ~25 s, when phase 6g's image requests came)
 GEN_ANSWERS = 1
-# the questions of phase 6d's `cli eval` (cut from 4 so that the `cuda`
-# tests and the whole smoke, phase 6f's timed waves included, keep a 900 s
-# chip call's margin)
-CLI_EVAL_LIMIT = 2
+# the questions of phase 6d's `cli eval` (cut from 4 to 2 for phase 6f's
+# timed waves, then to 1 beside phases 3c and 8's random-init arm, so the
+# smoke keeps its margin under 1,200 s on a slow host)
+CLI_EVAL_LIMIT = 1
 # phase 6f: the 12B pool's slots and prefix-cache entries, its two waves of
 # requests and their new tokens, and the answers' new tokens of the
 # concurrent /query
@@ -395,11 +405,24 @@ BF16_LAYERS, BF16_CONTEXT, HOST_LIMIT_GB = (1, 2), 4096, 48
 JUDGE_QUESTIONS = 8
 # phase 8b: the learned-quality loop's recipe steps; whether its trained
 # gate (each metric within its tolerance of the best committed trained
-# record) is held: the port's own initialisation (C-3) trains an encoder
-# that beats random-init but misses that gate, source_score on the CPU
-# and true_doc@5 by one question on the card (ROADMAP C-36), so the
-# verdict is logged, not checked
-LOOP_STEPS, LOOP_GATE_HELD = 800, False
+# record) is checked: from the Flax-equal init the loop trains the
+# committed trained record's encoder (its gated values equal on the CPU
+# and the card), so the gate holds (ROADMAP C-36, closed)
+LOOP_STEPS, LOOP_GATE_HELD = 800, True
+# the JAX package's committed random-init record (Flax's init, seed 0)
+RANDOM_INIT_RECORD = "results_hermetic_20260820_143837.json"
+# phase 3c: the same seed's weights on the card and on the CPU. Both run
+# the same IEEE-rounded torch ops after the bits, the erfinv's log1p and
+# sqrt in f64 rounded once to f32 (the card's f32 ones are an ulp off the
+# CPU's): only a last bit of an f64 log1p could move an f32 rounding, so
+# floats are held within 2 ulp; int8 kernels may be one off where an ulp
+# moves a rounding tie
+INIT_ULPS, INIT_DRAW_ULPS, INIT_INT8_OFF = 2, 2, 1e-4
+# the threefry draw's int32 instructions an element: 20 rounds of an add,
+# a rotate (one funnel shift) and a xor; 12 key adds; the counter's index
+# arithmetic. They issue on the SM's 64 INT32 lanes a clock (Hopper; the
+# guide's table has no integer rate off the tensor cores)
+DRAW_OPS, INT32_LANES = 20 * 3 + 12 + 8, 64
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_PAIRS, TRAIN_SEQ, TIMED_STEPS = 16, 192, 8
 # phase 9b: the sharded step's steps, its learning rate from the first step
@@ -2383,6 +2406,32 @@ def mesh_index(index, mesh, **cfg):
     return out
 
 
+def sharded_refine_alone(index, queries, k: int) -> tuple:
+    """The sharded `device_refine` search's algorithm on the card alone,
+    what `_sharded_int8` computes at world size 1: the int8 sweep's f32
+    top-4k (`approx_topk_int8`), then `dequant_refine`. The unsharded
+    store's own `device_refine` (`approx_topk_int8_selfrefined`) picks its
+    4k candidates on bf16 scores, as JAX's does: where many rows score
+    within a bf16 ulp of its cut it keeps other rows, so it is another
+    approximation, not this one."""
+    import torch
+
+    from rag_dpo_tpu_torch.ops.quantize import (
+        approx_topk_int8,
+        dequant_refine,
+        quantize_rows,
+    )
+
+    img = index.device_image()
+    qf = index._queries(queries, torch.float32)
+    q_i8, q_scale = quantize_rows(qf)
+    s, i = approx_topk_int8(q_i8, q_scale, img["embs_i8"], img["embs_scale"],
+                            min(4 * k, img["n_pad"]), oversample=1,
+                            penalty=img["alive_penalty"])
+    return index._finish(*dequant_refine(qf, img["embs_i8"],
+                                         img["embs_scale"], s, i, k), k)
+
+
 def same_ranking(got, want, what: str, tol: float = NEAR_TIE) -> float:
     """Two (scores, ids) top-k lists equal up to ties: scores rank for
     rank within `tol`, and in each row the same ids above the last score's
@@ -2410,7 +2459,10 @@ def serve_mesh(stack, questions, dev, seed: int) -> dict:
     `create_mesh(MeshSpec(shard=1))`; over the serve phase's rows, the
     row-sharded store's dense bf16, ELL, int8 and `device_refine` searches
     against the unsharded store on the card (ids equal, scores within
-    1e-5, each timed beside it), `Embedder(mesh=)` against the plain
+    1e-5, each timed beside it; the `device_refine` arm against its own
+    algorithm on the card alone, `sharded_refine_alone`, since the store's
+    own refine picks its candidates on bf16 scores, as JAX's does: their
+    overlap is logged), `Embedder(mesh=)` against the plain
     embedder (1e-5), the encoder's `attention_impl="ring"` at BGE-M3
     widths under `context_parallel` against "flash" (1e-5), and the
     Mistral-Nemo-12B (int8, random init from `--seed`) through
@@ -2483,6 +2535,14 @@ def serve_mesh(stack, questions, dev, seed: int) -> dict:
                 qt, qw, MESH_K)))
         for name, fn in searches:
             got, want = fn(sharded), fn(base)
+            extra = {}
+            if label == "int8_refine":
+                # the store's own refine is another approximation (bf16
+                # candidates): its overlap with the sharded ids is logged
+                extra["store_refine_overlap"] = float(np.mean([
+                    len(set(g) & set(w)) / len(w)
+                    for g, w in zip(got[1], want[1])]))
+                want = sharded_refine_alone(base, q_dense, MESH_K)
             if name == "sparse":
                 # the sharded ELL arm is a stable top-k (JAX's lax.top_k),
                 # the unsharded K3 keeps C-1's order among equal scores
@@ -2494,7 +2554,7 @@ def serve_mesh(stack, questions, dev, seed: int) -> dict:
                 check(err <= NEAR_TIE,
                       f"6h {label} {name}: scores differ by {err}")
             arms[f"{label}_{name}"] = {
-                "max_abs_err": err,
+                "max_abs_err": err, **extra,
                 "sharded_ms": cuda_ms(lambda: fn(sharded), iters=5),
                 "unsharded_ms": cuda_ms(lambda: fn(base), iters=5)}
         del sharded, base
@@ -4100,6 +4160,7 @@ def serve_generate(stack, questions, dev, seed: int) -> dict:
 
     from rag_dpo_tpu_torch.agent import RAGAgentPipeline
     from rag_dpo_tpu_torch.bootstrap import build_stack
+    from rag_dpo_tpu_torch.models import flax_init
     from rag_dpo_tpu_torch.models.decoder import QuantDense
     from rag_dpo_tpu_torch.models.generate import SamplingConfig
     from rag_dpo_tpu_torch.ops import _kernels
@@ -4126,11 +4187,14 @@ def serve_generate(stack, questions, dev, seed: int) -> dict:
     check(isinstance(llm, TPULLMProvider) and gen.device.type == "cuda"
           and llm._spec is not None, f"llm.mode tpu built {llm!r}")
     gen._rng_seed = seed
+    flax_init.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = gen.load()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_draws = flax_init.LAUNCHES["threefry_bits"]
+    check(init_draws > 0, "the 12B's init launched no Triton draw")
     state = model.state_dict()
     check(all(t.is_cuda for t in state.values()),
           "a 12B weight is not on the card")
@@ -4143,8 +4207,9 @@ def serve_generate(stack, questions, dev, seed: int) -> dict:
           f"int8 projections {int8_gb} GB")
     embed_gb = model.embed_tokens.weight.numel() * 4 / 1e9
     log(f"generate (b): Mistral-Nemo-12B (40 layers, 5120 wide, vocab "
-        f"131,072, int8 projections, tied f32 embedding; random init from "
-        f"seed {seed}) made on the card in {init_s:.2f} s: {weight_gb:.2f} "
+        f"131,072, int8 projections, tied f32 embedding; Flax's random init "
+        f"from seed {seed}, {init_draws} Triton draws) made on the card in "
+        f"{init_s:.2f} s: {weight_gb:.2f} "
         f"GB on the card ({int8_gb:.2f} GB int8 projections, {embed_gb:.2f} "
         f"GB f32 embedding)")
 
@@ -4281,7 +4346,8 @@ def serve_generate(stack, questions, dev, seed: int) -> dict:
         f"{peak_gb:.2f} GB in phase 6e ({before / 1e9:.2f} GB held before "
         f"it)")
     judge = serve_judge(llm, dev)
-    out = {"tiny_max_gap": tiny, "init_s": init_s, "weight_gb": weight_gb,
+    out = {"tiny_max_gap": tiny, "init_s": init_s,
+           "init_draw_launches": init_draws, "weight_gb": weight_gb,
            "int8_gb": int8_gb, "embedding_gb": embed_gb,
            "peak_device_gb": peak_gb, "prefill_ms": prefill_ms,
            "decode": decode, "spec_tokens_per_step": stats.tokens_per_step,
@@ -4555,8 +4621,7 @@ def serve_continuous(stack, questions, dev, seed: int, root: pathlib.Path,
                   for t in layer.values()),
           "a 12B weight or pool tensor is not on the card")
     if seed:
-        init_random_(engine.model,
-                     torch.Generator(device=dev).manual_seed(seed))
+        init_random_(engine.model, seed)
     pool_gb = sum(t.numel() * t.element_size() for layer in
                   engine._carry.caches for t in layer.values()) / 1e9
     llm.max_new_tokens = POOL_ANSWER_TOKENS
@@ -5025,8 +5090,8 @@ def fmt_where(stream: dict) -> str:
 def serve_vision(system, questions, dev, seed: int) -> dict:
     """Phase 6g, inside 6f while its 12B pool is resident: (a)
     `check_llava_tiny`; then `attach_vision()` on the pool's provider
-    (CLIP-ViT-L/14-336 and the 1024 → 5120 → 5120 projector, random init
-    from `--seed`); (b) the tower's encode at batch 1 cold, warm and as a
+    (CLIP-ViT-L/14-336 and the 1024 → 5120 → 5120 projector, JAX's random
+    init from key 0); (b) the tower's encode at batch 1 cold, warm and as a
     patch-cache hit beside its bound, the splice, the embeds prefill at
     its bucket beside its bound; (c) on loopback: one chat completion with
     a 336×336 PNG as a `data:` URL, one streamed with a 480×320 PNG (time
@@ -5063,7 +5128,7 @@ def serve_vision(system, questions, dev, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    lg = llm.attach_vision(rng_seed=seed)
+    lg = llm.attach_vision()
     mods = lg.load()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -5321,10 +5386,133 @@ def profile_once(fn, what: str, unprofiled_s: float, top: int = 8,
     return share, parts
 
 
+def f32_ulps(want, got) -> int:
+    """The largest gap of two f32 tensors in ulps (their bit patterns)."""
+    import torch
+
+    a = want.detach().float().cpu().contiguous().view(torch.int32)
+    b = got.detach().float().cpu().contiguous().view(torch.int32)
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def init_gap(want: dict, got: dict, what: str) -> dict:
+    """Leaf by leaf, two Flax-named trees of one family's init: f32 leaves
+    within INIT_ULPS, int8 leaves equal but a share ≤ INIT_INT8_OFF one
+    off. → the largest gaps."""
+    import torch
+    from rag_dpo_tpu_torch.models.convert import flatten_params
+
+    want, got = flatten_params(want), flatten_params(got)
+    check(sorted(want) == sorted(got), f"3c {what}: leaves differ")
+    ulps, off = 0, 0.0
+    for name, w in want.items():
+        g = got[name]
+        check(w.shape == g.shape and w.dtype == g.dtype,
+              f"3c {what} {name}: {w.shape} {w.dtype} vs {g.shape} {g.dtype}")
+        if w.dtype == torch.int8:
+            d = (w.cpu().int() - g.cpu().int()).abs()
+            check(int(d.max()) <= 1, f"3c {what} {name}: int8 off by more "
+                  f"than one")
+            off = max(off, float((d > 0).float().mean()))
+        else:
+            ulps = max(ulps, f32_ulps(w, g))
+    check(ulps <= INIT_ULPS and off <= INIT_INT8_OFF,
+          f"3c {what}: card against CPU {ulps} ulp, int8 one off in a "
+          f"share {off}")
+    return {"max_ulps": ulps, "int8_off_share": off}
+
+
+def check_flax_init(dev, seed: int) -> dict:
+    """Phase 3c: the seeded Flax init on the card. (a) the Triton draw
+    against its twin, bit for bit, and both timed over the 12B's widest
+    int8 kernel; (b) the four model families from one seed on the card
+    and on the CPU."""
+    import torch
+
+    from rag_dpo_tpu_torch.models import flax_init
+    from rag_dpo_tpu_torch.models.bge_m3 import BgeM3Config, build_bge_m3
+    from rag_dpo_tpu_torch.models.decoder import (
+        DecoderConfig,
+        build_decoder,
+        decoder_flax_tree,
+        init_random_,
+    )
+    from rag_dpo_tpu_torch.models.llava import LlavaConfig, LlavaGenerator
+    from rag_dpo_tpu_torch.retrieval.reranker import CrossEncoderReranker
+
+    t0 = time.perf_counter()
+    key = flax_init.flax_param_key(seed, ("layer_0", "mlp", "up_proj"), 1)
+    # (a) counters in the weight's order of a [5120, 14336] kernel, a block
+    # of rows past 2^32, a 1-D leaf
+    cases = {"transposed": [(0, 14_336, 1), (0, 5120, 14_336)],
+             "past_2^32": [(300_000, 300_064, 14_336), (0, 14_336, 1)],
+             "one_axis": [(7, 100_007, 1)]}
+    for label, axes in cases.items():
+        got = flax_init.bits_triton(key, axes, dev)
+        want = flax_init.bits_plain(key, axes, dev)
+        check(torch.equal(got, want), f"3c draw ({label}): the Triton bits "
+              f"differ from the twin's")
+    axes = cases["transposed"]
+    n = 14_336 * 5120
+    ms = cuda_ms(lambda: flax_init.bits_triton(key, axes, dev), iters=5)
+    plain_ms = cuda_ms(lambda: flax_init.bits_plain(key, axes, dev),
+                       iters=2, warmup=1)
+    draw = {"name": "threefry_bits", "route": "triton",
+            "source": "rag_dpo_tpu_torch/models/flax_init.py",
+            "shape": [14_336, 5120], "ms": ms, "plain_ms": plain_ms,
+            **bound(DRAW_OPS * n, 4 * n, flops_rate=INT32_LANES * H100_SMS
+                    * sm_clock_hz()), "library_ms": None}
+    for dt, bits in ((torch.float32, torch.int32),
+                     (torch.bfloat16, torch.int16)):
+        u = [flax_init.uniform(key, (1000, 999), -0.9545, 0.9545, dt, d)
+             .cpu().view(bits) for d in (dev, "cpu")]
+        check(torch.equal(*u),
+              f"3c uniforms ({dt}) differ between the card and the CPU")
+    x = flax_init.uniform(key, (4096, 1024), -1.0 + 2 ** -24, 1.0, device=dev)
+    draw_ulps = f32_ulps(flax_init.erfinv_f32(x.cpu()),
+                         flax_init.erfinv_f32(x))
+    check(draw_ulps <= INIT_DRAW_ULPS,
+          f"3c erfinv: card against CPU {draw_ulps} ulp")
+
+    # (b) the families, card against CPU
+    flax_init.reset_counts()
+    views = flax_init.flax_views
+    fam = {}
+    pair = [build_bge_m3(BgeM3Config.tiny(), rng_seed=seed, device=d)
+            for d in (dev, "cpu")]
+    fam["bge_m3"] = init_gap(views(pair[1]), views(pair[0]), "BGE-M3")
+    pair = [CrossEncoderReranker(device=d).load() for d in (dev, "cpu")]
+    fam["cross_encoder"] = init_gap(views(pair[1]), views(pair[0]),
+                                    "cross-encoder")
+    pair = [LlavaGenerator(LlavaConfig.tiny(), device=d).load()
+            for d in (dev, "cpu")]
+    for part in ("vision", "projector"):
+        fam[part] = init_gap(views(pair[1][part]), views(pair[0][part]),
+                             part)
+    cfg = DecoderConfig.tiny(quantize_weights=True)
+    pair = [init_random_(build_decoder(cfg, d), seed) for d in (dev, "cpu")]
+    fam["decoder_int8"] = init_gap(decoder_flax_tree(pair[1]),
+                                   decoder_flax_tree(pair[0]), "decoder")
+    launches = flax_init.LAUNCHES["threefry_bits"]
+    check(launches > 0, "3c: the Triton draw never launched")
+    secs = time.perf_counter() - t0
+    log(f"seeded init (3c): the Triton draw equals its twin bit for bit "
+        f"({', '.join(cases)}); over a [14336, 5120] kernel {fmt_ms(ms)} "
+        f"(twin {fmt_ms(plain_ms)}, bound {fmt_ms(draw['bound_ms'])} by "
+        f"{draw['bound_by']}); uniforms card = CPU; erfinv within "
+        f"{draw_ulps} ulp; families card against CPU {json.dumps(fam)}; "
+        f"{launches} draws launched; phase {secs:.1f} s")
+    return {"draw": dict(draw, launches=launches), "families": fam,
+            "erfinv_ulps": draw_ulps, "phase_s": secs}
+
+
 def run_hermetic(dev) -> dict:
-    """The hermetic replay through the port on the card, with the
-    committed trained encoder: the gate, then the MaxSim arm."""
+    """The hermetic replay through the port on the card: with the
+    committed trained encoder, the gate against the trained records; with
+    the port's own seeded init, the gate against the random-init record;
+    then the MaxSim arm (trained)."""
     from rag_dpo_tpu_torch.evals.hermetic import (
+        RESULTS_DIR,
         check_against_baseline,
         gated_values,
         run_hermetic_replay,
@@ -5333,13 +5521,16 @@ def run_hermetic(dev) -> dict:
     from rag_dpo_tpu_torch.ops import _kernels
 
     params = load_trained_params()
+    committed = json.loads((RESULTS_DIR / RANDOM_INIT_RECORD).read_text())
     out = {}
-    for reranker, kernels in (("none", ("ell_topk", "fused_topk")),
-                              ("maxsim", ("ell_topk", "fused_topk",
+    for arm, weights, reranker, kernels in (
+            ("none", params, "none", ("ell_topk", "fused_topk")),
+            ("random", None, "none", ("ell_topk", "fused_topk")),
+            ("maxsim", params, "maxsim", ("ell_topk", "fused_topk",
                                           "maxsim"))):
         _kernels.reset_counts()
         t0 = time.perf_counter()
-        record = run_hermetic_replay(n_runs=1, encoder_params=params,
+        record = run_hermetic_replay(n_runs=1, encoder_params=weights,
                                      reranker=reranker, device=dev)
         secs = time.perf_counter() - t0
         vals = gated_values(record)
@@ -5347,18 +5538,28 @@ def run_hermetic(dev) -> dict:
         plain = dict(_kernels.PLAIN_ON_CUDA)
         check(record["reranker"] == reranker
               and all(0.0 <= v <= 1.0 for v in vals.values()),
-              f"hermetic {reranker}: {record}")
-        check(all(launches.values()), f"hermetic {reranker}: {launches}")
-        check(not any(plain.values()), f"hermetic {reranker}: plain {plain}")
+              f"hermetic {arm}: {record}")
+        check(all(launches.values()), f"hermetic {arm}: {launches}")
+        check(not any(plain.values()), f"hermetic {arm}: plain {plain}")
+        encoder = "trained" if weights is not None else "random-init"
+        check(record["encoder"] == encoder, f"hermetic {arm}: {record}")
         if reranker == "none":
             failures = check_against_baseline(record)
-            check(not failures, f"hermetic gate: {failures}")
-        log(f"hermetic, trained encoder, reranker {reranker}: "
+            check(not failures, f"hermetic gate ({encoder}): {failures}")
+        same = ""
+        if weights is None:
+            diff = {k: round(v - gated_values(committed)[k], 6)
+                    for k, v in vals.items()}
+            same = ("; every gated value equals the committed record's"
+                    if not any(diff.values()) else
+                    f"; against the committed record {json.dumps(diff)}")
+            out[arm + "_vs_committed"] = diff
+        log(f"hermetic, {encoder} encoder, reranker {reranker}: "
             f"{json.dumps(vals)} in {secs:.1f} s"
-            + ("; gate OK against the committed trained records"
+            + (f"; gate OK against the committed {encoder} records"
                if reranker == "none" else "; no committed series, not gated")
-            + f"; launches {launches}")
-        out[reranker] = {"gated": vals, "launches": launches, "seconds": secs}
+            + same + f"; launches {launches}")
+        out[arm] = {"gated": vals, "launches": launches, "seconds": secs}
     return out
 
 
@@ -5370,7 +5571,7 @@ def run_quality_loop(dev) -> dict:
     The loss must fall, the npz's leaves be finite, K3 and K4 launch with
     no twin, and true_doc@5 beat the best committed random-init record;
     the trained gate's verdict is checked where LOOP_GATE_HELD, else
-    logged (ROADMAP C-36)."""
+    logged."""
     import numpy as np
 
     from rag_dpo_tpu_torch.evals.hermetic import (
@@ -5417,7 +5618,7 @@ def run_quality_loop(dev) -> dict:
         f"{json.dumps(vals)}; true_doc@5 beats random-init's "
         f"{rand['true_doc_hit_rate_at_5']}; trained gate: "
         + " / ".join(lines[1:])
-        + ("" if LOOP_GATE_HELD else " (logged, not checked: ROADMAP C-36)")
+        + ("" if LOOP_GATE_HELD else " (logged, not checked)")
         + f"; launches {launches}; phase {seconds:.1f} s")
     return {"train_s": metrics["train_seconds"],
             "steps_per_s": metrics["steps_per_s"],
@@ -6011,6 +6212,9 @@ def main() -> int:
     flash_bwd = check_flash_bwd(dev, gen)
     gc.collect()
     torch.cuda.empty_cache()
+    seeded_init = check_flax_init(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     store_limits = run_store_limits(args.seed, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6130,6 +6334,8 @@ def main() -> int:
          "replaces": "rag_dpo_tpu/ops/sparse.py:71",
          "launches": path["launches"]["ell_topk"],
          "hermetic_launches": hermetic["maxsim"]["launches"]["ell_topk"],
+         "hermetic_random_init_launches":
+             hermetic["random"]["launches"]["ell_topk"],
          **serve_phase_launches["ell_topk"],
          **ell},
         {"name": "flash_bwd_dq", "route": "cuda", "source": bwd_src,
@@ -6161,6 +6367,8 @@ def main() -> int:
          "maxsim_serve_launches":
              path["maxsim"]["launches"]["fused_topk"],
          "hermetic_launches": hermetic["none"]["launches"]["fused_topk"],
+         "hermetic_random_init_launches":
+             hermetic["random"]["launches"]["fused_topk"],
          **serve_phase_launches["fused_topk"],
          **ingest_launches["fused_topk"],
          **k4},
@@ -6231,6 +6439,10 @@ def main() -> int:
                     "front_door_phases_s": new_phases_s,
                     "hermetic_trained": hermetic["none"]["gated"],
                     "hermetic_trained_maxsim": hermetic["maxsim"]["gated"],
+                    "hermetic_random_init": hermetic["random"]["gated"],
+                    "hermetic_random_init_vs_committed":
+                        hermetic["random_vs_committed"],
+                    "seeded_init": seeded_init,
                     **{k: v for k, v in train.items()
                        if k.startswith("train_")},
                     "train_mesh": {

@@ -16,13 +16,12 @@ encoder, prints the gated values and the gate's verdict, and exits 1 on
 a regression. It saves no file.
 
 Weights: `encoder_params` is a Flax tree as numpy (`load_trained_params()`
-for the committed trained checkpoint). The committed random-init record
-was made with Flax's threefry initialisation, which torch cannot
-reproduce (ROADMAP C-3): the port's own random-init encoder is another
-encoder, so that record is gated only with the Flax weights exported
-from JAX (a CPU test). Likewise the `"cross"` arm's cross-encoder is
-torch-initialised and cannot match the JAX arm (ROADMAP C-11); no
-`"cross"` record is gated. `"maxsim"` has no committed series.
+for the committed trained checkpoint), or None for the seeded random init.
+The port draws Flax's init from the same seed (`models/flax_init.py`), so
+its own random-init replay is gated against the committed random-init
+record, on the CPU and on the card, and the `"cross"` arm's random
+cross-encoder is JAX's, its replay equal to the JAX arm's. No `"cross"`
+record is committed; `"maxsim"` has no committed series either.
 
 `EVAL_VERSION`, `GATED_METRICS` and the gate functions are the JAX
 module's, unchanged.

@@ -111,9 +111,7 @@ def build_bge_m3(config: BgeM3Config, params=None, rng_seed: int = 0,
         return load_flax_params(BgeM3Model(config), params).to(device)
     with device:  # no host-side init pass
         model = BgeM3Model(config)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(rng_seed)
-    return init_random_(model, gen)
+    return init_random_(model, rng_seed)
 
 
 def full_flax_tree(model: BgeM3Model) -> dict:

@@ -511,29 +511,17 @@ def build_decoder(cfg: DecoderConfig, device, tp=None) -> DecoderModel:
     return model.requires_grad_(False).eval()
 
 
-def init_random_(model: DecoderModel, generator: torch.Generator
-                 ) -> DecoderModel:
-    """Seeded random init on the generator's device with the JAX module's
-    distributions: Dense and Embed weights normal with std 1/sqrt(fan_in)
-    (Flax truncates at 2σ, this does not), RMSNorm scales 1, QuantDense
-    kernels `clip(round(normal · 42), ±127)` with scales 0.01. Different
-    numbers than Flax's threefry from the same seed (ROADMAP C-3); parity
-    tests load JAX params instead."""
-    with torch.no_grad():
-        for sub in model.modules():
-            if isinstance(sub, QuantDense):
-                w = sub.weight_q
-                for r in range(0, w.shape[0], 4096):   # bounded f32 temp
-                    vals = torch.randn(w[r:r + 4096].shape,
-                                       generator=generator, device=w.device)
-                    w[r:r + 4096] = torch.clamp(torch.round(vals * 42.0),
-                                                -127, 127).to(torch.int8)
-                sub.scale.fill_(0.01)
-            elif isinstance(sub, (Dense, Embed)):
-                fan_in = sub.weight.shape[1]
-                sub.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
-            elif isinstance(sub, RMSNorm):
-                sub.weight.fill_(1.0)
+def init_random_(model: DecoderModel, seed: int = 0) -> DecoderModel:
+    """Seeded random init in place, on the model's device, as the JAX
+    module's `model.init(jax.random.key(seed), ...)` makes it
+    (`models.flax_init` over `decoder_flax_tree`): Dense kernels
+    lecun_normal (a normal truncated at ±2σ), Embed tables normal with std
+    1/sqrt(features), RMSNorm scales 1, QuantDense kernels `clip(round(
+    normal · 42), ±127)` with scales 0.01. A TP model draws its own slices
+    of each whole tensor."""
+    from .flax_init import init_flax_tree_, module_tp
+
+    init_flax_tree_(decoder_flax_tree(model), seed, module_tp(model))
     return model
 
 

@@ -287,22 +287,14 @@ class TransformerEncoder(nn.Module):
         return hidden
 
 
-def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random init with the Flax defaults' distributions: Dense and
-    Embed weights normal with std 1/sqrt(fan_in) (lecun normal and Flax's
-    embed init; Flax truncates at 2σ, this does not), biases 0, LayerNorm
-    weight 1. Different numbers than Flax's threefry from the same seed
-    (ROADMAP C-3); parity tests load JAX params instead."""
-    with torch.no_grad():
-        for sub in module.modules():
-            if isinstance(sub, nn.Linear):
-                sub.weight.normal_(0.0, sub.in_features ** -0.5,
-                                   generator=generator)
-                sub.bias.zero_()
-            elif isinstance(sub, nn.Embedding):
-                sub.weight.normal_(0.0, sub.embedding_dim ** -0.5,
-                                   generator=generator)
-            elif isinstance(sub, LayerNorm):
-                sub.weight.fill_(1.0)
-                sub.bias.zero_()
-    return module
+def init_random_(module: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random init in place, on the module's device, as the JAX
+    module's `model.init(jax.random.key(seed), ...)` makes it
+    (`models.flax_init`): Dense kernels lecun_normal (a normal truncated
+    at ±2σ), biases 0, Embed tables normal with std 1/sqrt(features),
+    LayerNorm scales 1 and biases 0, every value drawn by Flax's threefry
+    keys. `module` is the root of the Flax tree (a `BgeM3Model`,
+    `CrossEncoderModel` or `TransformerEncoder`)."""
+    from .flax_init import init_module_
+
+    return init_module_(module, seed)

@@ -277,9 +277,7 @@ class TextGenerator:
             if self.model is None:
                 model = build_decoder(self.config, self.device, self.tp)
                 if self._params is None:
-                    gen = torch.Generator(device=self.device)
-                    gen.manual_seed(self._rng_seed)
-                    init_random_(model, gen)
+                    init_random_(model, self._rng_seed)
                 else:
                     load_decoder_params(model, self._params)
                     self._params = None

@@ -97,8 +97,11 @@ class LlavaGenerator:
 
     `params`: {"vision": tree, "projector": tree} (Flax trees of numpy
     arrays, as `convert_llava_state_dict` or JAX's `load()` give them),
-    another generator's `load()` (its modules, shared), or None for a
-    seeded random init (`rng_seed`) on the decoder's device.
+    another generator's `load()` (its modules, shared), or None for JAX's
+    random init on the decoder's device: tower and projector each from
+    `jax.random.key(0)`, whatever the seed, as JAX's `load()` makes them.
+    `rng_seed` seeds the decoder a new `TextGenerator` draws (no
+    `generator` given).
     `image_cache`: entries of the projected-patch LRU (0 = off)."""
 
     def __init__(self, config: LlavaConfig,
@@ -110,7 +113,6 @@ class LlavaGenerator:
             config.text, rng_seed=rng_seed, device=device)
         self.device = self.generator.device
         self._params = params
-        self._rng_seed = int(rng_seed)
         self._load_lock = threading.Lock()
         # digest-keyed LRU of projected patches on the card: [n_img, H] in
         # the decoder's dtype, ~5.9 MB an image at 12B / CLIP-L
@@ -133,10 +135,10 @@ class LlavaGenerator:
                         cfg.text.dtype, cfg.text.param_dtype)
                 projector.requires_grad_(False).eval()
                 if p is None:
-                    gen = torch.Generator(device=dev)
-                    gen.manual_seed(self._rng_seed)
-                    init_vit_(vision, gen)
-                    init_vit_(projector, gen)
+                    # key 0 for both, whatever the seed, as JAX's
+                    # LlavaGenerator.load initialises them
+                    init_vit_(vision, 0)
+                    init_vit_(projector, 0)
                 else:
                     load_flax_params(vision, p["vision"])
                     load_flax_params(projector, p["projector"])

@@ -222,28 +222,16 @@ def build_vit(cfg: ViTConfig, device) -> ViTModel:
     return model.requires_grad_(False).eval()
 
 
-def init_vit_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+def init_vit_(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init of a `ViTModel` or a module of `Dense` layers
-    (the LLaVA projector) on the generator's device with the JAX modules'
-    distributions: Dense kernels normal with std 1/sqrt(fan_in) (Flax's
-    lecun_normal truncates at 2σ, this does not), biases 0, the patch
-    kernel and both embeddings normal(0.02), LayerNorm scales 1 and biases
-    0. Other numbers than Flax's threefry from the same seed (ROADMAP
-    C-3); parity tests load JAX params instead."""
-    with torch.no_grad():
-        for sub in model.modules():
-            if isinstance(sub, Dense):
-                sub.weight.normal_(0.0, sub.weight.shape[1] ** -0.5,
-                                   generator=generator)
-                sub.bias.zero_()
-            elif isinstance(sub, LayerNorm):
-                sub.weight.fill_(1.0)
-                sub.bias.zero_()
-            elif isinstance(sub, ViTModel):
-                for t in (sub.patch_kernel, sub.class_embedding,
-                          sub.position_embedding):
-                    t.normal_(0.0, 0.02, generator=generator)
-    return model
+    (the LLaVA projector) in place, on its device, as the JAX module's
+    `init(jax.random.key(seed), ...)` makes it (`models.flax_init`): Dense
+    kernels lecun_normal (a normal truncated at ±2σ), biases 0, the patch
+    kernel and both embeddings normal(0.02) (the ViT scope's first three
+    parameters), LayerNorm scales 1 and biases 0."""
+    from .flax_init import init_module_
+
+    return init_module_(model, seed)
 
 
 # CLIP preprocessing constants (OPENAI_CLIP_MEAN/STD)

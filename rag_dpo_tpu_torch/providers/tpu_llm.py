@@ -462,8 +462,7 @@ class TPULLMProvider(BaseLLMProvider):
         self.generator.warm_choose(cand_ids.shape[0], p,
                                    cand_ids.shape[1])
 
-    def attach_vision(self, vision_config=None, params=None,
-                      rng_seed: int = 0):
+    def attach_vision(self, vision_config=None, params=None):
         """Enable image+text generation on the card (LLaVA-class): a ViT
         tower + MLP projector sharing THIS provider's decoder weights and
         decode path (models/llava.py). The reference routes the same
@@ -473,16 +472,15 @@ class TPULLMProvider(BaseLLMProvider):
 
         `vision_config`: the tower (default CLIP-ViT-L/14-336). `params`:
         output of `convert_llava_state_dict` (installs vision + projector
-        here and the decoder tree in the shared generator) or None (random
-        init from `rng_seed`, for tests and measurements)."""
+        here and the decoder tree in the shared generator) or None (JAX's
+        random init, from key 0, for tests and measurements)."""
         from ..models.llava import LlavaConfig, LlavaGenerator
         from ..models.vit import ViTConfig
 
         cfg = LlavaConfig(
             vision=vision_config or ViTConfig.clip_vit_l_336(),
             text=self.config)
-        self._llava = LlavaGenerator(cfg, generator=self.generator,
-                                     rng_seed=rng_seed)
+        self._llava = LlavaGenerator(cfg, generator=self.generator)
         if params is not None:
             self._llava.load_converted(params)
         return self._llava

@@ -73,9 +73,7 @@ class CrossEncoderReranker:
             else:
                 with torch.device(self.device):  # no host-side init pass
                     model = CrossEncoderModel(self.model_config)
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(self._rng_seed)
-                init_random_(model, gen)
+                init_random_(model, self._rng_seed)
             self.model = model.eval()
         return self.model
 

@@ -8,10 +8,11 @@ port's server, providers, tagger and query logger, and a tiny config of the
 same widths. The cases' own imports inside their bodies resolve to the same
 port modules (`sys.modules` entries patched for the call).
 
-Every decoder those cases build starts from the JAX module's own init of
-its config and seed (`init_random_` patched to load it), so the token
-streams the cases' data choices rest on (a run long enough to cancel, an
-EOS the speculative cut must meet) are JAX's. The solo oracles (`_solo`,
+Every decoder those cases build starts from the port's own seeded init,
+which is the JAX module's init of its config and seed
+(`models/flax_init.py`), so the token streams the cases' data choices rest
+on (a run long enough to cancel, an EOS the speculative cut must meet) are
+JAX's. The solo oracles (`_solo`,
 `_solo_sampled`) return `SoloTokens`: a pool's
 run equals them when its tokens are equal, or first differ at a near-tie of
 the solo run's logits (ROADMAP C-29, `test_torch_continuous.NEAR_TIE`).
@@ -33,14 +34,12 @@ processes, so its port runs its body's steps on 2 gloo ranks
 generator, every request against its unsharded solo run.
 """
 
-import dataclasses
 import functools
 import inspect
 import os
 import sys
 import types
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,12 +65,7 @@ import rag_dpo_tpu_torch.serving.continuous as tcontinuous
 import rag_dpo_tpu_torch.utils.paths as tpaths
 import rag_dpo_tpu_torch.utils.query_logger as tqlog
 from rag_dpo_tpu.models.decoder import DecoderConfig as JDecoderConfig
-from rag_dpo_tpu.models.decoder import DecoderModel as JDecoderModel
-from rag_dpo_tpu_torch.models.decoder import (
-    DecoderConfig,
-    DecoderModel,
-    load_decoder_params,
-)
+from rag_dpo_tpu_torch.models.decoder import DecoderConfig, DecoderModel
 from rag_dpo_tpu_torch.models.generate import SamplingConfig, TextGenerator
 from rag_dpo_tpu_torch.providers.tpu_llm import TPULLMProvider
 from test_torch_continuous import SoloTokens
@@ -245,26 +239,6 @@ def _generator(config, params=None, **kwargs):
                          **kwargs)
 
 
-_JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
-_JAX_INITS: dict = {}
-
-
-def _jax_init_(model, generator):
-    """`init_random_`'s stand-in: the JAX module's init of the same config
-    and seed, as the JAX `TextGenerator.load` makes it."""
-    kw = {f.name: getattr(model.config, f.name)
-          for f in dataclasses.fields(model.config)}
-    kw["dtype"] = _JAX_DTYPE[kw["dtype"]]
-    kw["param_dtype"] = _JAX_DTYPE[kw["param_dtype"]]
-    key = (tuple(sorted(kw.items(), key=str)), generator.initial_seed())
-    if key not in _JAX_INITS:
-        params = JDecoderModel(JDecoderConfig(**kw)).init(
-            jax.random.key(generator.initial_seed()),
-            jnp.zeros((1, 8), jnp.int32))
-        _JAX_INITS[key] = jax.tree.map(np.asarray, params)
-    return load_decoder_params(model, _JAX_INITS[key])
-
-
 class _ViTConfig:
     """`rag_dpo_tpu.models.vit.ViTConfig` as the cases call it, making the
     port's config (JAX dtypes mapped to torch's)."""
@@ -409,7 +383,6 @@ def on_port(monkeypatch):
     }
     for name, mod in modules.items():
         monkeypatch.setitem(sys.modules, name, mod)
-    monkeypatch.setattr(tgenerate, "init_random_", _jax_init_)
     env = dict(os.environ)
     yield
     os.environ.clear()

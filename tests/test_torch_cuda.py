@@ -187,8 +187,7 @@ def test_encoder_backward_on_the_card_matches_the_cpu(dev):
     from rag_dpo_tpu_torch.models import BgeM3Config, BgeM3Model
     from rag_dpo_tpu_torch.models.encoder import init_random_
 
-    model = init_random_(BgeM3Model(BgeM3Config.tiny()),
-                         torch.Generator().manual_seed(0))
+    model = init_random_(BgeM3Model(BgeM3Config.tiny()), 0)
     rng = np.random.default_rng(1)
     lengths = torch.tensor([40, 17, 5], dtype=torch.int32)
     ids = torch.full((3, 40), 1, dtype=torch.long)
@@ -1485,8 +1484,7 @@ def _decoder_pair(dev, **kw):
     )
 
     cfg = DecoderConfig.tiny(num_heads=4, num_kv_heads=2, **kw)
-    cpu = init_random_(build_decoder(cfg, "cpu"),
-                       torch.Generator().manual_seed(0))
+    cpu = init_random_(build_decoder(cfg, "cpu"), 0)
     card = build_decoder(cfg, dev)
     card.load_state_dict(cpu.state_dict())
     return cfg, cpu, card
@@ -1547,6 +1545,7 @@ def test_greedy_and_speculative_decode_on_the_card(dev, kw):
     """The cached greedy decode on the card is the argmax chain of its own
     full forwards (up to ties within the dtype's tolerance), and the
     speculative decode gives the same tokens bit for bit."""
+    from rag_dpo_tpu_torch.models.decoder import DecoderModel
     from rag_dpo_tpu_torch.models.generate import (
         SamplingConfig,
         TextGenerator,
@@ -1562,11 +1561,22 @@ def test_greedy_and_speculative_decode_on_the_card(dev, kw):
     greedy = SamplingConfig(temperature=0.0, max_new_tokens=16, eos_id=-1)
     out = gen.generate_ids(ids, lengths, greedy)
     tol = DECODER_TOL[cfg.dtype]
+
+    def last_logits(row):
+        x = torch.tensor([row], device=dev)
+        if not cfg.quantize_kv:
+            return card(x)[0, -1].float()
+        # the decode attends its int8 cache: its own full forward is the
+        # forward over the row through a fresh int8 cache
+        pos = torch.arange(len(row), device=dev)[None]
+        lg, _ = card(x, pos, DecoderModel.init_cache(cfg, 1, device=dev))
+        return lg[0, -1].float()
+
     with torch.no_grad():
         for r in range(3):
             row = list(ids[r, :lengths[r]])
             for t in out[r]:
-                lg = card(torch.tensor([row], device=dev))[0, -1].float()
+                lg = last_logits(row)
                 assert lg[int(t)] >= lg.max() - tol, (r, len(row))
                 row.append(int(t))
     spec, stats = SpeculativeGenerator(gen, draft_len=4).generate_ids(
@@ -2001,3 +2011,57 @@ def test_bf16_encoder_on_the_card_matches_the_cpu(dev):
                  (got.colbert, want.colbert)):
         torch.testing.assert_close(a.float().cpu(), b.float(), atol=2e-2,
                                    rtol=0)
+
+
+# ---------------------------------------------------- the seeded init
+@pytest.mark.parametrize("axes", [
+    [(0, 1000, 1)],                                  # a 1-D leaf
+    [(0, 4096, 1), (0, 1024, 4096)],                 # a weight's order
+    [(300_000, 300_064, 14_336), (0, 14_336, 1)],    # counters past 2^32
+    [(5, 6, 7), (3, 1027, 1)],                       # one row, offsets
+])
+def test_threefry_draw_matches_its_twin(dev, axes):
+    """The Triton draw's bits equal the int64 torch ops' bit for bit, one
+    launch a call."""
+    from rag_dpo_tpu_torch.models import flax_init
+
+    key = flax_init.flax_param_key(3, ("layer_0", "fc1"), 1)
+    before = flax_init.LAUNCHES["threefry_bits"]
+    got = flax_init.bits_triton(key, axes, dev)
+    assert flax_init.LAUNCHES["threefry_bits"] == before + 1
+    want = flax_init.bits_plain(key, axes, dev)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_seeded_init_on_the_card_is_the_cpus(dev):
+    """One seed's tiny int8 decoder and BGE-M3 on the card and on the CPU:
+    f32 leaves within 2 ulp (one f64 log1p's last bit), int8 kernels
+    equal but a share ≤ 1e-4 one off."""
+    from rag_dpo_tpu_torch.models import flax_init
+    from rag_dpo_tpu_torch.models.bge_m3 import BgeM3Config, build_bge_m3
+    from rag_dpo_tpu_torch.models.convert import flatten_params
+    from rag_dpo_tpu_torch.models.decoder import (
+        DecoderConfig,
+        build_decoder,
+        decoder_flax_tree,
+        init_random_,
+    )
+
+    cfg = DecoderConfig.tiny(quantize_weights=True)
+    trees = [(flatten_params(decoder_flax_tree(
+                init_random_(build_decoder(cfg, d), 5))),
+              flatten_params(flax_init.flax_views(
+                  build_bge_m3(BgeM3Config.tiny(), rng_seed=5, device=d))))
+             for d in (dev, "cpu")]
+    for card, cpu in zip(*trees):
+        assert sorted(card) == sorted(cpu)
+        for name, want in cpu.items():
+            got = card[name].cpu()
+            if want.dtype == torch.int8:
+                d = (got.int() - want.int()).abs()
+                assert int(d.max()) <= 1
+                assert float((d > 0).float().mean()) <= 1e-4
+            else:
+                gap = (got.view(torch.int32).long()
+                       - want.view(torch.int32).long()).abs().max()
+                assert int(gap) <= 2, name

@@ -191,8 +191,7 @@ def test_kv_cache_matches_full_forward(kw, tol):
     """prefill + step-by-step decode == the full causal forward (the
     int8 cache against a full forward over the same cache)."""
     cfg = DecoderConfig.tiny(**kw)
-    gen = torch.Generator().manual_seed(0)
-    model = init_random_(build_decoder(cfg, "cpu"), gen)
+    model = init_random_(build_decoder(cfg, "cpu"), 0)
     ids = torch.as_tensor(_ids(1, (2, 10)), dtype=torch.long)
     b, s, pre = 2, 10, 6
     with torch.no_grad():
@@ -274,8 +273,7 @@ def test_int8_kv_requantization_is_stable():
     values come back bit for bit (scale = rowmax/127 puts the max at
     ±127), so decode steps never drift the cache."""
     cfg = DecoderConfig.tiny(dtype=torch.float32, quantize_kv=True)
-    model = init_random_(build_decoder(cfg, "cpu"),
-                         torch.Generator().manual_seed(5))
+    model = init_random_(build_decoder(cfg, "cpu"), 5)
     ids = torch.as_tensor(_ids(5, (2, 12)), dtype=torch.long)
     with torch.no_grad():
         caches = DecoderModel.init_cache(cfg, 2)

@@ -1,9 +1,10 @@
 """The hermetic replay gate through the port: the random-init record.
 
 The committed random-init record was made with Flax's threefry
-initialisation, which torch cannot reproduce (ROADMAP C-3), so the port
-replays with those weights exported from JAX. The replay itself imports
-nothing of JAX.
+initialisation. The port draws the same weights from the same seed
+(`models/flax_init.py`), so its own random-init replay is gated against
+that record; the replay with the weights exported from JAX stays beside
+it. The replay itself imports nothing of JAX.
 """
 
 import json
@@ -51,4 +52,17 @@ def test_port_replay_with_flax_random_init_passes_the_gate():
     # on the CPU the port reproduces the committed record to the digit
     committed = json.loads(RECORD.read_text())
     assert committed["encoder"] == "random-init"
+    assert gated_values(record) == gated_values(committed)
+
+
+def test_port_replay_with_its_own_random_init_passes_the_gate():
+    """`encoder_params=None`: the port's seeded init, no JAX weights. Its
+    weights are Flax's within 4 ulp, and on the CPU every gated value
+    equals the committed record's."""
+    record = run_hermetic_replay(n_runs=1, device="cpu")
+    print(json.dumps(gated_values(record)))
+    assert record["encoder"] == "random-init"
+    assert record["reranker"] == "none" and record["n_questions"] == 48
+    assert not check_against_baseline(record)
+    committed = json.loads(RECORD.read_text())
     assert gated_values(record) == gated_values(committed)

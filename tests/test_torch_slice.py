@@ -456,6 +456,10 @@ BLOCKED_RUN = textwrap.dedent("""
     assert callable(loop_main)
     words = load_safetensors(sys.argv[3])["w"]
     assert float32_leaf(words).tolist() == [[1.5, -2.0], [0.0, 2.0 ** 127]]
+    from rag_dpo_tpu_torch.models import flax_init
+    # the seeded init's bits, `jax.random.bits(jax.random.key(0), (3,))`
+    assert flax_init.random_bits(flax_init.seed_key(0), (3,)).tolist() \
+        == [4070199207, 4202968722, 1427181096]
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
