@@ -20,10 +20,10 @@ interchangeable (the UI toggles them at runtime).
 
 from __future__ import annotations
 
-import time
 from typing import Sequence
 
 from ..rag.pipeline import RAGResponse
+from ..utils.profiling import collect_spans, span, span_rows, span_seconds
 from . import nodes
 from .nodes import NodeComponents
 from .state import AgentState
@@ -87,7 +87,6 @@ class RAGAgentPipeline:
         temperature: float | None = None,
         on_delta=None,
     ) -> RAGResponse:
-        t0 = time.time()
         state = AgentState(
             question=question,
             conversation_history=list(conversation_history or []),
@@ -98,7 +97,8 @@ class RAGAgentPipeline:
             temperature=temperature,
             on_delta=on_delta,
         )
-        state = self.graph.run(state)
+        with collect_spans() as spans, span("agent.query") as whole:
+            state = self.graph.run(state)
         timings = state.timings
         return RAGResponse(
             answer=state.answer,
@@ -108,10 +108,10 @@ class RAGAgentPipeline:
             topics=state.intent.topics,
             model=state.model,
             retrieval_time=timings.get("retrieve", 0.0),
-            rerank_time=0.0,
+            rerank_time=span_seconds(spans, "rerank"),
             generation_time=timings.get("generate", 0.0),
             validation_time=timings.get("validate", 0.0),
-            total_time=time.time() - t0,
+            total_time=whole.seconds,
             n_candidates=state.n_candidates,
             grounded=state.grounded,
             grounding_issues=state.grounding_issues,
@@ -126,6 +126,7 @@ class RAGAgentPipeline:
                 "refusal_type": state.refusal_type,
                 "rewritten_question": state.question,
             },
+            spans=span_rows(spans),
         )
 
 

@@ -24,10 +24,11 @@ duplicating logic" (nodes.py:6-9). Node inventory and behaviors:
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
+import functools
 import re
 import threading
-import time
 from typing import Any
 
 from ..rag.context import ContextBuilder, fix_markdown_formatting
@@ -37,6 +38,7 @@ from ..rag.pipeline import build_enterprise_where_filter, \
     rebuild_documents_from_ranked_chunks
 from ..rag.validators import GroundingValidator, extract_citations
 from ..providers.base import BaseLLMProvider
+from ..utils.profiling import span
 from . import tools
 from .state import AgentState
 
@@ -59,6 +61,26 @@ class NodeComponents:
     enable_completeness: bool = True
 
 
+def _node(fn):
+    """Run a node inside its span `agent.<node>`; the node's time is the
+    span's (`AgentState.record`)."""
+    @functools.wraps(fn)
+    def run(c: NodeComponents, s: AgentState) -> AgentState:
+        with span(f"agent.{fn.__name__}") as sp:
+            s = fn(c, s)
+        s.record(fn.__name__, sp)
+        return s
+
+    return run
+
+
+def _in_span(s: AgentState, node: str, fn) -> None:
+    """Run `fn` in the span `agent.<node>`; its time is the node's."""
+    with span(f"agent.{node}") as sp:
+        fn()
+    s.timings[node] = sp.seconds
+
+
 # ------------------------------------------------------------------ rewrite
 
 REWRITE_PROMPT = """Réécris la dernière question de l'utilisateur comme une
@@ -74,8 +96,8 @@ Dernière question : "{question}"
 Question autonome :"""
 
 
+@_node
 def rewrite(c: NodeComponents, s: AgentState) -> AgentState:
-    t0 = time.time()
     s.original_question = s.original_question or s.question
     if s.conversation_history:
         hist = "\n".join(
@@ -88,16 +110,14 @@ def rewrite(c: NodeComponents, s: AgentState) -> AgentState:
         )
         if resp.ok and 5 <= len(resp.text.strip()) <= 400:
             s.question = resp.text.strip().strip('"')
-    s.record("rewrite", t0)
     return s
 
 
 # ----------------------------------------------------------------- classify
 
+@_node
 def classify(c: NodeComponents, s: AgentState) -> AgentState:
-    t0 = time.time()
     s.intent = c.intent_classifier.classify(s.question)
-    s.record("classify", t0)
     return s
 
 
@@ -114,27 +134,21 @@ def overlap_prepare(c: NodeComponents, s: AgentState) -> AgentState:
     device while the LLM decides. In the rare refusal route the
     prefetch/decompose work is wasted — latency is unchanged (they ran
     in parallel), only device occupancy is spent."""
-    t0 = time.time()
     errors: list[BaseException] = []
 
     def _classify():
-        tc = time.time()
         try:
             s.intent = c.intent_classifier.classify(s.question)
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
-        s.timings["classify"] = time.time() - tc
 
     def _decompose():
-        tc = time.time()
         try:
             s.sub_questions = tools.decompose_question(c.llm, s.question)
         except BaseException as e:  # noqa: BLE001
             errors.append(e)
-        s.timings["decompose"] = time.time() - tc
 
     def _prefetch():
-        tc = time.time()
         try:
             where = build_enterprise_where_filter(
                 s.enterprise_tags, s.where_filter)
@@ -143,16 +157,21 @@ def overlap_prepare(c: NodeComponents, s: AgentState) -> AgentState:
         except Exception:
             # retrieval re-runs (and surfaces its error) in retrieve()
             s.prefetched_candidates = None
-        s.timings["prefetch"] = time.time() - tc
 
-    threads = [threading.Thread(target=f)
-               for f in (_classify, _decompose, _prefetch)]
-    [t.start() for t in threads]
-    [t.join() for t in threads]
+    with span("agent.overlap_prepare") as whole:
+        # each thread runs in a copy of this context: its spans join the
+        # request's, under this one
+        threads = [threading.Thread(target=contextvars.copy_context().run,
+                                    args=(_in_span, s, name, f))
+                   for name, f in (("classify", _classify),
+                                   ("decompose", _decompose),
+                                   ("prefetch", _prefetch))]
+        [t.start() for t in threads]
+        [t.join() for t in threads]
     if errors:
         raise errors[0]
     s.node_trace.extend(["classify", "decompose"])
-    s.timings["overlap_prepare"] = time.time() - t0
+    s.timings["overlap_prepare"] = whole.seconds
     return s
 
 
@@ -202,13 +221,12 @@ def confirm_refusal_keyword(question: str) -> str | None:
     return None
 
 
+@_node
 def refusal(c: NodeComponents, s: AgentState) -> AgentState:
-    t0 = time.time()
     subtype = s.refusal_type or "hors_perimetre"
     s.answer = REFUSAL_ANSWERS[subtype]
     s.model = "deterministic_refusal"
     s.built_sources = []
-    s.record("refusal", t0)
     return s
 
 
@@ -240,8 +258,8 @@ CONFUSION_GUARDS = {
 }
 
 
+@_node
 def enrich(c: NodeComponents, s: AgentState) -> AgentState:
-    t0 = time.time()
     for m in _ARTICLE_Q_RE.finditer(s.question):
         info = tools.lookup_article(m.group(1))
         if info and info not in s.detected_articles:
@@ -259,23 +277,21 @@ def enrich(c: NodeComponents, s: AgentState) -> AgentState:
             for g in guards:
                 if g.lower() not in low and g not in s.guard_negative_topics:
                     s.guard_negative_topics.append(g)
-    s.record("enrich", t0)
     return s
 
 
 # ---------------------------------------------------------------- decompose
 
+@_node
 def decompose(c: NodeComponents, s: AgentState) -> AgentState:
-    t0 = time.time()
     s.sub_questions = tools.decompose_question(c.llm, s.question)
-    s.record("decompose", t0)
     return s
 
 
 # ----------------------------------------------------------------- retrieve
 
+@_node
 def retrieve(c: NodeComponents, s: AgentState) -> AgentState:
-    t0 = time.time()
     if s.retrieval_query:
         # targeted re-retrieval: the completeness check's suggested
         # query takes precedence EVEN for decomposed questions — the
@@ -318,7 +334,6 @@ def retrieve(c: NodeComponents, s: AgentState) -> AgentState:
     else:
         s.documents = new_docs
     s.retrieval_query = None
-    s.record("retrieve", t0)
     return s
 
 
@@ -351,8 +366,8 @@ section Markdown (##) par sous-question, dans cet ordre :
 Termine par une courte synthèse."""
 
 
+@_node
 def generate(c: NodeComponents, s: AgentState) -> AgentState:
-    t0 = time.time()
     negative = list(s.intent.negative_topics)
     for g in s.guard_negative_topics:
         if g not in negative:
@@ -415,7 +430,6 @@ def generate(c: NodeComponents, s: AgentState) -> AgentState:
     s.context_text = built.context_text
     if not gen.ok:
         s.error = gen.error
-    s.record("generate", t0)
     return s
 
 
@@ -428,8 +442,8 @@ Conserve toutes les citations. Réponds uniquement par la réponse améliorée.
 {answer}"""
 
 
+@_node
 def expert_refinement(c: NodeComponents, s: AgentState) -> AgentState:
-    t0 = time.time()
     resp = c.llm.generate(REFINE_PROMPT.format(answer=s.answer),
                           temperature=0.0)
     if resp.ok:
@@ -442,14 +456,13 @@ def expert_refinement(c: NodeComponents, s: AgentState) -> AgentState:
         )
         if refined and not lost_citations and not grew_too_much:
             s.answer = refined
-    s.record("expert_refinement", t0)
     return s
 
 
 # ----------------------------------------------------------------- validate
 
+@_node
 def validate(c: NodeComponents, s: AgentState) -> AgentState:
-    t0 = time.time()
     report = c.grounding_validator.validate(
         s.answer, s.context_text, n_sources=len(s.built_sources)
     )
@@ -459,7 +472,6 @@ def validate(c: NodeComponents, s: AgentState) -> AgentState:
         s.answer = c.grounding_validator.fix_invented_sources(
             s.answer, len(s.built_sources)
         )
-    s.record("validate", t0)
     return s
 
 
@@ -473,8 +485,8 @@ def should_retry_generation(c: NodeComponents, s: AgentState) -> bool:
 
 # --------------------------------------------------------- completeness
 
+@_node
 def check_completeness(c: NodeComponents, s: AgentState) -> AgentState:
-    t0 = time.time()
     result = tools.check_answer_completeness(
         c.llm, s.question, s.answer,
         query_if_below=c.coverage_threshold)
@@ -483,7 +495,6 @@ def check_completeness(c: NodeComponents, s: AgentState) -> AgentState:
             and result.suggested_queries
             and s.re_retrievals < c.max_re_retrievals):
         s.retrieval_query = result.suggested_queries[0]
-    s.record("check_completeness", t0)
     return s
 
 
@@ -493,13 +504,12 @@ def should_re_retrieve(c: NodeComponents, s: AgentState) -> bool:
 
 # ------------------------------------------------------------------ respond
 
+@_node
 def respond(c: NodeComponents, s: AgentState) -> AgentState:
-    t0 = time.time()
     s.answer = fix_markdown_formatting(s.answer)
     if s.built_sources:
         s.answer, s.built_sources = \
             c.context_builder.format_response_with_sources(
                 s.answer, s.built_sources
             )
-    s.record("respond", t0)
     return s

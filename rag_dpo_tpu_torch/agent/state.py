@@ -9,7 +9,6 @@ plain mutable dataclass.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any
 
 from ..rag.intent import QuestionIntent
@@ -69,8 +68,8 @@ class AgentState:
     timings: dict[str, float] = dataclasses.field(default_factory=dict)
     node_trace: list[str] = dataclasses.field(default_factory=list)
     error: str | None = None
-    t_start: float = dataclasses.field(default_factory=time.time)
 
-    def record(self, node: str, t0: float):
+    def record(self, node: str, sp):
+        """The node ran, in the span `sp`: its time adds to the node's."""
         self.node_trace.append(node)
-        self.timings[node] = self.timings.get(node, 0.0) + time.time() - t0
+        self.timings[node] = self.timings.get(node, 0.0) + sp.seconds

@@ -240,10 +240,15 @@ def render_dashboard(st, system):
     driver = getattr(system.get("llm"), "_driver", None)
     if driver is not None:
         eng = driver.engine
+        wait_ms = eng.stats["queue_wait_ns"] / 1e6 \
+            / max(eng.stats["admitted"], 1)
         st.caption(
             f"pool de décodage : {eng.stats['admitted']} requêtes / "
             f"{eng.slots} slots (occupation moyenne {eng.occupancy:.1f})"
             f" · {eng.stats['tokens']} tokens"
+            f" · attente moyenne {wait_ms:.0f} ms · device : préremplissage "
+            f"{eng.stats['prefill_device_ns'] / 1e9:.1f} s, décodage "
+            f"{eng.stats['decode_device_ns'] / 1e9:.1f} s"
             + (f" · préfixe : {eng.stats['prefix_hits']} hits, "
                f"{eng.stats['prefix_saved_tokens']} tokens évités"
                if eng.prefix_cache else "")

@@ -81,6 +81,7 @@ from ..ops.sparse import ell_scores, ell_topk
 from ..ops.topk import fused_topk, pad_columns
 from ..parallel import mesh as pmesh
 from ..parallel.collectives import sharded_topk_multi
+from ..utils.profiling import span
 from .metadata import MetadataStore, compile_filter
 
 NEG_INF = -1e30
@@ -641,11 +642,12 @@ class DeviceIndex:
             return self._strip_dead(s, i, k)
         # masked, small corpus: exact full scores then mask+topk
         s = _host(ell_scores(dev["terms"], dev["impacts"], qt, qw))
-        s = s[:, : self.n_rows]
-        s = np.where(mask[None, :], s, NEG_INF)
-        idx = np.argsort(-s, axis=1, kind="stable")[:, :k]
-        top = np.take_along_axis(s, idx, axis=1)
-        idx = np.where(top > NEG_INF / 2, idx, -1).astype(np.int32)
+        with span("retrieval.sparse.sort"):    # host: mask and sort
+            s = s[:, : self.n_rows]
+            s = np.where(mask[None, :], s, NEG_INF)
+            idx = np.argsort(-s, axis=1, kind="stable")[:, :k]
+            top = np.take_along_axis(s, idx, axis=1)
+            idx = np.where(top > NEG_INF / 2, idx, -1).astype(np.int32)
         if idx.shape[1] < k:  # corpus smaller than k: fixed width
             pad = k - idx.shape[1]
             top = np.pad(top, ((0, 0), (0, pad)), constant_values=NEG_INF)

@@ -34,6 +34,7 @@ from .context import BuiltContext, ContextBuilder, fix_markdown_formatting
 from .generator import GeneratedResponse, Generator
 from .intent import IntentClassifier, QuestionIntent
 from .validators import GroundingValidator, RelevanceValidator
+from ..utils.profiling import collect_spans, span, span_rows
 
 
 def build_enterprise_where_filter(
@@ -78,6 +79,9 @@ class RAGResponse:
     retried: bool = False
     error: str | None = None
     extras: dict[str, Any] = dataclasses.field(default_factory=dict)
+    # the query's spans: (name, start epoch ns, duration ns, parent's
+    # index or -1, thread), in the order they started
+    spans: list[tuple] = dataclasses.field(default_factory=list)
 
 
 _STANCE_YES = re.compile(r"^\s*(?:\*\*)?\s*oui\b", re.IGNORECASE)
@@ -177,18 +181,28 @@ class RAGPipeline:
         n_chunks_per_doc: int = 3,
         temperature: float | None = None,
     ) -> RAGResponse:
-        t_start = time.time()
+        with collect_spans() as spans, span("pipeline.query") as whole:
+            response = self._query(question, where_filter, enterprise_tags,
+                                   conversation_history, n_documents,
+                                   n_chunks_per_doc, temperature)
+        response.total_time = whole.seconds
+        response.spans = span_rows(spans)
+        return response
+
+    def _query(self, question, where_filter, enterprise_tags,
+               conversation_history, n_documents, n_chunks_per_doc,
+               temperature) -> RAGResponse:
         where = build_enterprise_where_filter(enterprise_tags, where_filter)
 
         # --- intent (classification overlaps expansion+search)
         intent_join = self._classify_concurrent(question)
 
         # --- retrieval
-        t0 = time.time()
-        documents, candidates, rerank_time, intent = self._retrieve(
-            question, where, intent_join, n_documents, n_chunks_per_doc
-        )
-        retrieval_time = time.time() - t0 - rerank_time
+        with span("pipeline.retrieve") as sp:
+            documents, candidates, rerank_time, intent = self._retrieve(
+                question, where, intent_join, n_documents, n_chunks_per_doc
+            )
+        retrieval_time = sp.seconds - rerank_time
 
         if not documents:
             return RAGResponse(
@@ -199,7 +213,6 @@ class RAGPipeline:
                 intent=intent.intent,
                 topics=intent.topics,
                 retrieval_time=retrieval_time,
-                total_time=time.time() - t_start,
                 n_candidates=0,
             )
 
@@ -211,7 +224,7 @@ class RAGPipeline:
 
         return self._final_response(
             answer, question, intent, built, gen, grounding, retried,
-            retrieval_time, rerank_time, len(candidates), t_start,
+            retrieval_time, rerank_time, len(candidates),
         )
 
     def query_stream(
@@ -238,16 +251,18 @@ class RAGPipeline:
         one). The reference's chat surface blocks ~39 s with zero
         output (`pages/1_💬_Chat.py:312`); here first tokens arrive as
         soon as retrieval (+TTFT) completes."""
-        t_start = time.time()
+        # the whole and the generation span the consumer's yields, which a
+        # span (a context variable) may not: the monotonic clock times them
+        t_start = time.perf_counter()
         where = build_enterprise_where_filter(enterprise_tags,
                                               where_filter)
         intent_join = self._classify_concurrent(question)
 
-        t0 = time.time()
-        documents, candidates, rerank_time, intent = self._retrieve(
-            question, where, intent_join, n_documents, n_chunks_per_doc
-        )
-        retrieval_time = time.time() - t0 - rerank_time
+        with span("pipeline.retrieve") as sp:
+            documents, candidates, rerank_time, intent = self._retrieve(
+                question, where, intent_join, n_documents, n_chunks_per_doc
+            )
+        retrieval_time = sp.seconds - rerank_time
 
         if not documents:
             yield ("response", RAGResponse(
@@ -258,7 +273,7 @@ class RAGPipeline:
                 intent=intent.intent,
                 topics=intent.topics,
                 retrieval_time=retrieval_time,
-                total_time=time.time() - t_start,
+                total_time=time.perf_counter() - t_start,
                 n_candidates=0,
             ))
             return
@@ -269,7 +284,7 @@ class RAGPipeline:
             negative_topics=intent.negative_topics,
             conversation_history=conversation_history,
         )
-        t0 = time.time()
+        t0 = time.perf_counter()
         pieces: list[str] = []
         err = None
         # hold the LLM stream so an abandoned consumer (client
@@ -292,7 +307,7 @@ class RAGPipeline:
         gen = GeneratedResponse(
             text=text,
             model=getattr(self.generator.llm, "model_name", ""),
-            generation_time=time.time() - t0,
+            generation_time=time.perf_counter() - t0,
             error=err or ("réponse vide du modèle"
                           if not text.strip() else None),
         )
@@ -303,20 +318,21 @@ class RAGPipeline:
             temperature, where, n_documents, n_chunks_per_doc,
             first=(built, gen),
         )
-        yield ("response", self._final_response(
+        response = self._final_response(
             answer, question, intent, built, gen, grounding, retried,
-            retrieval_time, rerank_time, len(candidates), t_start,
-        ))
+            retrieval_time, rerank_time, len(candidates),
+        )
+        response.total_time = time.perf_counter() - t_start
+        yield ("response", response)
 
     # ------------------------------------------------------------ helpers
     def _final_response(self, answer, question, intent, built, gen,
                         grounding, retried, retrieval_time, rerank_time,
-                        n_candidates, t_start) -> RAGResponse:
-        t0 = time.time()
-        answer = fix_markdown_formatting(answer)
-        answer, used_sources = self.context_builder.\
-            format_response_with_sources(answer, built.sources)
-        validation_time = time.time() - t0
+                        n_candidates) -> RAGResponse:
+        with span("pipeline.format") as sp:
+            answer = fix_markdown_formatting(answer)
+            answer, used_sources = self.context_builder.\
+                format_response_with_sources(answer, built.sources)
         return RAGResponse(
             answer=answer,
             question=question,
@@ -327,8 +343,7 @@ class RAGPipeline:
             retrieval_time=retrieval_time,
             rerank_time=rerank_time,
             generation_time=gen.generation_time,
-            validation_time=validation_time,
-            total_time=time.time() - t_start,
+            validation_time=sp.seconds,
             n_candidates=n_candidates,
             grounded=grounding.grounded,
             grounding_issues=grounding.issues,
@@ -349,12 +364,12 @@ class RAGPipeline:
             )
             if callable(intent):
                 intent = intent()
-            t0 = time.time()
-            ranked = self.reranker.rerank(
-                question, candidates, top_k=self.rerank_top_k,
-                question_topics=intent.topics,
-            )
-            rerank_time = time.time() - t0
+            with span("pipeline.rerank") as sp:
+                ranked = self.reranker.rerank(
+                    question, candidates, top_k=self.rerank_top_k,
+                    question_topics=intent.topics,
+                )
+            rerank_time = sp.seconds
             documents = rebuild_documents_from_ranked_chunks(
                 ranked, n_documents, n_chunks_per_doc
             )

@@ -28,6 +28,7 @@ from ..ops import default_device
 from ..ops.maxsim import maxsim
 from ..tokenize import HashedTokenizer, Tokenizer
 from ..tokenize.base import bucket_length
+from ..utils.profiling import span
 from .types import RetrievedChunk
 
 
@@ -96,21 +97,26 @@ class CrossEncoderReranker:
         """Sigmoid relevance scores for (query, passage) pairs. With
         `enable_pair_batching`, concurrent callers' pairs coalesce into
         shared cross-encoder forwards (rows are independent under the
-        per-row key mask)."""
+        per-row key mask). Spans: `rerank.tokenize` (the host's pair
+        encoding) and `rerank.score` (the forward and its copy out)."""
         cfg = self.config
         if self._pair_batcher is not None and len(pairs):
-            enc = self.tokenizer.encode_pairs(list(pairs), cfg.max_len)
-            rows = np.concatenate(
-                [enc.input_ids,
-                 np.asarray(enc.lengths, np.int32)[:, None]],
-                axis=1).astype(np.int32)
-            (scores,) = self._pair_batcher(rows)
+            with span("rerank.tokenize"):
+                enc = self.tokenizer.encode_pairs(list(pairs), cfg.max_len)
+                rows = np.concatenate(
+                    [enc.input_ids,
+                     np.asarray(enc.lengths, np.int32)[:, None]],
+                    axis=1).astype(np.int32)
+            with span("rerank.score"):
+                (scores,) = self._pair_batcher(rows)
             return scores
         out = []
         for i in range(0, len(pairs), cfg.batch_size):
-            enc = self.tokenizer.encode_pairs(
-                list(pairs[i : i + cfg.batch_size]), cfg.max_len)
-            out.append(self._scores(enc.input_ids, enc.lengths))
+            with span("rerank.tokenize"):
+                enc = self.tokenizer.encode_pairs(
+                    list(pairs[i : i + cfg.batch_size]), cfg.max_len)
+            with span("rerank.score"):
+                out.append(self._scores(enc.input_ids, enc.lengths))
         return np.concatenate(out) if out else np.zeros((0,), np.float32)
 
     def _scores(self, ids_full: np.ndarray, lengths: np.ndarray
@@ -165,6 +171,10 @@ class CrossEncoderReranker:
         top_k: int = 10,
         question_topics: Sequence[str] | None = None,
     ) -> list[RetrievedChunk]:
+        with span("rerank"):
+            return self._rerank(question, chunks, top_k, question_topics)
+
+    def _rerank(self, question, chunks, top_k, question_topics):
         if not chunks:
             return []
         cfg = self.config
@@ -228,6 +238,10 @@ class MaxSimReranker:
     def rerank(self, question: str, chunks: Sequence[RetrievedChunk],
                top_k: int = 10, question_topics=None
                ) -> list[RetrievedChunk]:
+        with span("rerank"):
+            return self._rerank(question, chunks, top_k)
+
+    def _rerank(self, question, chunks, top_k):
         if not chunks:
             return []
         out = self.embedder.embed([question], return_colbert=True)

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 import re
-import time
 from typing import Any, Sequence
 
 import numpy as np
@@ -35,6 +34,7 @@ from ..index import DeviceIndex
 from ..ops.fusion import rrf_fuse
 from ..providers.embedding import Embedder
 from ..rag.acronyms import expand_acronyms
+from ..utils.profiling import span
 from .bm25 import Bm25Stats, SummaryBm25Index
 from .types import (
     RetrievedChunk,
@@ -143,20 +143,25 @@ class HybridRetriever:
         n_candidates: int = 40,
         where: dict | None = None,
     ) -> list[RetrievedChunk]:
-        """Raw fused candidate pool for the reranker (no doc dedup)."""
+        """Raw fused candidate pool for the reranker (no doc dedup). Each
+        stage after the expansion is a span: `retrieval.prefilter`,
+        `.encode`, `.dense`, `.sparse` and `.fuse`."""
         cfg = self.config
         queries = self._queries(question)
         # prefilter on the ACRONYM-EXPANDED query (queries[0]), like the
         # retrieval arms — summaries spell acronyms out, so filtering on
         # the raw question could $in-mask every relevant document away
-        eff_where = self._doc_filter(queries[0], where)
+        with span("retrieval.prefilter"):
+            eff_where = self._doc_filter(queries[0], where)
         nq = len(queries)
         k_arm = cfg.per_arm_k
 
         # --- dense arms: one batched search over all query variants
-        q_dense = self.embedder.embed_queries(queries)  # [nq, D]
-        d_scores, d_rows = self.index.search_dense(
-            q_dense, k_arm, where=eff_where, exact=cfg.dense_exact)
+        with span("retrieval.encode"):
+            q_dense = self.embedder.embed_queries(queries)  # [nq, D]
+        with span("retrieval.dense"):
+            d_scores, d_rows = self.index.search_dense(
+                q_dense, k_arm, where=eff_where, exact=cfg.dense_exact)
 
         arms = [d_rows[i] for i in range(nq)]
         weights = [cfg.weight_original] + [cfg.weight_expansion] * (nq - 1)
@@ -164,13 +169,14 @@ class HybridRetriever:
         # --- sparse arms (BM25) batched
         s_rows = None
         if cfg.use_sparse and self.bm25_stats is not None:
-            pairs = [self.bm25_stats.query_terms(q, cfg.max_query_terms)
-                     for q in queries]
-            qt = np.stack([p[0] for p in pairs])
-            qw = np.stack([p[1] for p in pairs])
-            s_scores, s_rows = self.index.search_sparse(
-                qt, qw, k_arm, where=eff_where
-            )
+            with span("retrieval.sparse"):
+                pairs = [self.bm25_stats.query_terms(q, cfg.max_query_terms)
+                         for q in queries]
+                qt = np.stack([p[0] for p in pairs])
+                qw = np.stack([p[1] for p in pairs])
+                s_scores, s_rows = self.index.search_sparse(
+                    qt, qw, k_arm, where=eff_where
+                )
             for i in range(nq):
                 arms.append(s_rows[i])
                 weights.append(
@@ -178,51 +184,52 @@ class HybridRetriever:
                     else cfg.weight_bm25_expansion
                 )
 
-        # --- weighted RRF fusion on the host (a few hundred ids;
-        # overfetched: the content prior below may demote rows out of
-        # the final pool)
-        ids = torch.from_numpy(
-            np.stack(arms)[:, None, :].astype(np.int32))  # [A,1,L]
-        w = torch.from_numpy(np.asarray(weights, np.float32))
-        n_fetch = min(n_candidates * max(cfg.fetch_multiplier, 1),
-                      ids.shape[0] * ids.shape[2])
-        fused_scores, fused_rows = rrf_fuse(
-            ids, w, k_rrf=cfg.rrf_k, topk=n_fetch
-        )
-        fused_scores = fused_scores[0].numpy()
-        fused_rows = fused_rows[0].numpy()
+        with span("retrieval.fuse"):
+            # --- weighted RRF fusion on the host (a few hundred ids;
+            # overfetched: the content prior below may demote rows out of
+            # the final pool)
+            ids = torch.from_numpy(
+                np.stack(arms)[:, None, :].astype(np.int32))  # [A,1,L]
+            w = torch.from_numpy(np.asarray(weights, np.float32))
+            n_fetch = min(n_candidates * max(cfg.fetch_multiplier, 1),
+                          ids.shape[0] * ids.shape[2])
+            fused_scores, fused_rows = rrf_fuse(
+                ids, w, k_rrf=cfg.rrf_k, topk=n_fetch
+            )
+            fused_scores = fused_scores[0].numpy()
+            fused_rows = fused_rows[0].numpy()
 
-        dense_by_row = {
-            int(r): float(s)
-            for rr, ss in zip(d_rows, d_scores)
-            for r, s in zip(rr, ss) if r >= 0
-        }
-        sparse_by_row: dict[int, float] = {}
-        if s_rows is not None:
-            sparse_by_row = {
+            dense_by_row = {
                 int(r): float(s)
-                for rr, ss in zip(s_rows, s_scores)
+                for rr, ss in zip(d_rows, d_scores)
                 for r, s in zip(rr, ss) if r >= 0
             }
+            sparse_by_row: dict[int, float] = {}
+            if s_rows is not None:
+                sparse_by_row = {
+                    int(r): float(s)
+                    for rr, ss in zip(s_rows, s_scores)
+                    for r, s in zip(rr, ss) if r >= 0
+                }
 
-        out: list[RetrievedChunk] = []
-        for row, score in zip(fused_rows, fused_scores):
-            if row < 0:
-                continue
-            row = int(row)
-            meta = dict(self.index.meta.row(row))
-            out.append(RetrievedChunk(
-                chunk_id=self.index.ids[row],
-                text=self.chunk_text(row),
-                metadata=meta,
-                score=float(score) * self._content_prior(meta),
-                dense_score=dense_by_row.get(row, 0.0),
-                sparse_score=sparse_by_row.get(row, 0.0),
-                row=row,
-            ))
-        # the prior can reorder: ≤n_fetch rows, host sort is free; cut
-        # back to the requested pool size after demotion
-        out.sort(key=lambda c: -c.score)
+            out: list[RetrievedChunk] = []
+            for row, score in zip(fused_rows, fused_scores):
+                if row < 0:
+                    continue
+                row = int(row)
+                meta = dict(self.index.meta.row(row))
+                out.append(RetrievedChunk(
+                    chunk_id=self.index.ids[row],
+                    text=self.chunk_text(row),
+                    metadata=meta,
+                    score=float(score) * self._content_prior(meta),
+                    dense_score=dense_by_row.get(row, 0.0),
+                    sparse_score=sparse_by_row.get(row, 0.0),
+                    row=row,
+                ))
+            # the prior can reorder: ≤n_fetch rows, host sort is free; cut
+            # back to the requested pool size after demotion
+            out.sort(key=lambda c: -c.score)
         return out[:n_candidates]
 
     def _content_prior(self, meta: dict) -> float:

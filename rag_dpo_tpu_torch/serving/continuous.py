@@ -48,6 +48,17 @@ prefill differs: the whole row at once through the decoder's
 (entries key by token bytes), never preempted (a recompute resume cannot
 rebuild a spliced prefix from ids), and their draft history holds only
 their emitted tokens.
+
+The engine counts its own time in `stats`: `queue_wait_ns` (enqueue to
+admission into a slot, summed over admissions, on the monotonic clock),
+`prefills` (one an admission, a chunked prompt's segments together) with
+the rows each computed (`prefill_rows`) against its valid tokens
+(`prefill_tokens`), and the device time of the prefill calls and the
+decode dispatches (`prefill_device_ns`, `decode_device_ns`). On the card
+those come from CUDA event pairs around each call, read once the step's
+own harvest has synchronised and `query()` says they are done; on the CPU
+from the host clock around the call. The step's stages are spans
+(`pool.admit`, `pool.prefill`, `pool.decode`).
 """
 
 from __future__ import annotations
@@ -78,6 +89,7 @@ from ..models.generate import (
     truncated_token_prob,
 )
 from ..tokenize.base import bucket_length
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -113,6 +125,10 @@ class _Request:
     #                          (multimodal submit_embeds): prefill runs
     #                          through inputs_embeds, ids is a pad
     #                          placeholder; no prefix cache, no preemption
+    enqueued_ns: int = 0     # monotonic ns it (re-)joined the queue
+    waited_ns: int = 0       # its last wait, enqueue to admission
+    prefill_rows: int = 0    # rows its prefill computed (every segment)
+    prefill_tokens: int = 0  # the valid tokens among them
 
 
 def _lookup_draft_np(hist: np.ndarray, k: int, n: int,
@@ -218,7 +234,11 @@ class ContinuousEngine:
                       "prefix_saved_tokens": 0,
                       "spec_dispatches": 0, "plain_dispatches": 0,
                       "prefill_segments": 0, "cancelled": 0,
-                      "preempted": 0}
+                      "preempted": 0, "queue_wait_ns": 0, "prefills": 0,
+                      "prefill_rows": 0, "prefill_tokens": 0,
+                      "prefill_device_ns": 0, "decode_device_ns": 0}
+        # CUDA event pairs not read yet: (stats key, start, end)
+        self._timing: list[tuple] = []
         # priority scheduling: admission picks the queued request with the
         # lowest (effective priority, rid); `age_steps=N` ages a waiting
         # request one level per N engine steps; `preemption=True` lets a
@@ -334,6 +354,7 @@ class ContinuousEngine:
                     self._plain_left = 0 if spec_on else 10**9
                 while not self._requests[rid].done and self.busy:
                     self.step()
+        self._timing.clear()
         self.stats.update(snap)
         for eid in [e for e in self._pentries if e not in pre_entries]:
             entry = self._pentries.pop(eid)
@@ -388,7 +409,8 @@ class ContinuousEngine:
                presence_penalty: float = 0.0,
                logit_bias: dict | None = None,
                logprobs: int | None = None,
-               seed: int | None = None) -> int:
+               seed: int | None = None,
+               enqueued_ns: int | None = None) -> int:
         """Queue a request; returns its id. `on_token(rid, token_id)` fires
         per decoded token. `temperature` overrides the engine default for
         THIS request (≤0 = greedy); `priority` orders admission (lower
@@ -396,8 +418,10 @@ class ContinuousEngine:
         tokens; `seed` pins THIS request's sampling stream (None derives
         one from the engine's base seed and the request id); `logit_bias`
         adds a static per-request adjustment to every draw's logits;
-        `logprobs` keeps that many top alternatives per token. Admission
-        happens at the next `step()` if a slot is free."""
+        `logprobs` keeps that many top alternatives per token;
+        `enqueued_ns` (`time.perf_counter_ns`, default now) is where its
+        queue wait starts. Admission happens at the next `step()` if a
+        slot is free."""
         ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         length = min(int(length), len(ids))
         s = self._bucket("prompt", len(ids), length, max_new)
@@ -405,7 +429,8 @@ class ContinuousEngine:
         padded[:min(len(ids), s)] = ids[:s]
         return self._enqueue(padded, length, max_new, on_token, temperature,
                              priority, frequency_penalty, presence_penalty,
-                             logit_bias, logprobs, seed)
+                             logit_bias, logprobs, seed,
+                             enqueued_ns=enqueued_ns)
 
     def submit_embeds(self, embeds, length: int, max_new: int,
                       on_token: Callable | None = None,
@@ -415,7 +440,8 @@ class ContinuousEngine:
                       presence_penalty: float = 0.0,
                       logit_bias: dict | None = None,
                       logprobs: int | None = None,
-                      seed: int | None = None) -> int:
+                      seed: int | None = None,
+                      enqueued_ns: int | None = None) -> int:
         """Queue a MULTIMODAL request: `embeds` [S, H] (or [1, S, H]) is
         the full prefix, prompt-token embeddings with projected image
         patches spliced in (models/llava.py `compose` builds it on the
@@ -436,7 +462,8 @@ class ContinuousEngine:
         return self._enqueue(np.full((s,), self.sampling.pad_id, np.int32),
                              length, max_new, on_token, temperature,
                              priority, frequency_penalty, presence_penalty,
-                             logit_bias, logprobs, seed, embeds=e)
+                             logit_bias, logprobs, seed, embeds=e,
+                             enqueued_ns=enqueued_ns)
 
     def _bucket(self, what: str, n: int, length: int, max_new: int) -> int:
         """The row width of a prompt of `n` positions (`length` real):
@@ -453,7 +480,7 @@ class ContinuousEngine:
 
     def _enqueue(self, ids, length, max_new, on_token, temperature,
                  priority, frequency_penalty, presence_penalty, logit_bias,
-                 logprobs, seed, embeds=None) -> int:
+                 logprobs, seed, embeds=None, enqueued_ns=None) -> int:
         logit_bias = self._check_bias(logit_bias)
         logprobs = self._check_logprobs(logprobs)
         temp = self.sampling.temperature if temperature is None \
@@ -469,7 +496,9 @@ class ContinuousEngine:
                        on_token=on_token, priority=int(priority),
                        submit_step=self.stats["steps"],
                        logit_bias=logit_bias, want_logprobs=logprobs,
-                       embeds=embeds)
+                       embeds=embeds,
+                       enqueued_ns=(_time.perf_counter_ns()
+                                    if enqueued_ns is None else enqueued_ns))
         self._queue.append(req)
         self._requests[req.rid] = req
         return req.rid
@@ -507,6 +536,7 @@ class ContinuousEngine:
         return (eff, req.rid)
 
     def _admit_into(self, slot: int, req: _Request):
+        req.waited_ns = _time.perf_counter_ns() - req.enqueued_ns
         if self.prefill_chunk and req.length > self.prefill_chunk \
                 and req.embeds is None:
             # long prompt: prefill in segments across steps so the pool
@@ -515,7 +545,8 @@ class ContinuousEngine:
             self._prefilling[slot] = self._prefill_begin(req)
             req.slot = slot
             return
-        logits1, caches1 = self._prefill_row(req)
+        with span("pool.prefill"):
+            logits1, caches1 = self._prefill_row(req)
         self._activate(slot, req, logits1, caches1)
 
     def _preempt(self, req: _Request):
@@ -543,6 +574,7 @@ class ContinuousEngine:
         padded[:len(hist)] = hist
         req.ids = padded
         req.length = len(hist)
+        req.enqueued_ns = _time.perf_counter_ns()
         self.stats["preempted"] += 1
 
     def _admit(self):
@@ -640,6 +672,11 @@ class ContinuousEngine:
             # token key to store under
             self._prefix_store(req, caches1)
         self.stats["admitted"] += 1
+        self.stats["queue_wait_ns"] += req.waited_ns
+        self.stats["prefills"] += 1
+        self.stats["prefill_rows"] += req.prefill_rows
+        self.stats["prefill_tokens"] += req.prefill_tokens
+        req.prefill_rows = req.prefill_tokens = 0
 
     def _segments(self, req: _Request, p: int):
         """The (start, tokens, bucket) of each prefill segment from p."""
@@ -673,12 +710,14 @@ class ContinuousEngine:
         suffix = np.full((1, s2), self.sampling.pad_id, np.int32)
         suffix[0, :seg] = req.ids[p:p + seg]
         ids = self.gen._tensor(suffix)
+        stop = self._timed("prefill", req, s2, seg)
         if p == 0:
             logits1, caches1 = self.gen._prefill(
                 ids, self.gen._tensor([seg]), cache_len=st["rows"])
         else:
             logits1, caches1 = self.gen._extend(ids, [p], [seg],
                                                 st["caches"])
+        stop()
         st["caches"], st["logits"] = caches1, logits1
         st["done_to"] = p + seg
         self.stats["prefill_segments"] += 1
@@ -695,22 +734,31 @@ class ContinuousEngine:
         invisible. A multimodal request prefills its whole row from its
         embeddings, with no prefix cache."""
         if req.embeds is not None:
-            return self.gen._prefill(None, self.gen._tensor([req.length]),
-                                     cache_len=req.embeds.shape[0],
-                                     embeds=req.embeds[None])
+            stop = self._timed("prefill", req, req.embeds.shape[0],
+                               req.length)
+            out = self.gen._prefill(None, self.gen._tensor([req.length]),
+                                    cache_len=req.embeds.shape[0],
+                                    embeds=req.embeds[None])
+            stop()
+            return out
         p, entry = self._prefix_lookup(req)
         if entry is None:
             s = len(req.ids)
-            return self.gen._prefill(self.gen._tensor(req.ids[None]),
-                                     self.gen._tensor([req.length]),
-                                     cache_len=s)
+            stop = self._timed("prefill", req, s, req.length)
+            out = self.gen._prefill(self.gen._tensor(req.ids[None]),
+                                    self.gen._tensor([req.length]),
+                                    cache_len=s)
+            stop()
+            return out
         suf_len = req.length - p
         s2 = min(bucket_length(suf_len), self.cfg.max_seq_len - p)
         suffix = np.full((1, s2), self.sampling.pad_id, np.int32)
         suffix[0, :suf_len] = req.ids[p:req.length]
+        stop = self._timed("prefill", req, s2, suf_len)
         logits1, caches1 = self.gen._extend(
             self.gen._tensor(suffix), [p], [suf_len],
             self._entry_caches(entry, p + s2))
+        stop()
         self.stats["prefix_hits"] += 1
         self.stats["prefix_saved_tokens"] += p
         return logits1, caches1
@@ -788,39 +836,24 @@ class ContinuousEngine:
         """Admit what fits, advance every active slot (by `chunk` tokens,
         or by speculative verifies), harvest, free finished slots. Returns
         the number of live tokens emitted."""
-        self._admit()
-        # advance every in-flight chunked prefill by one segment; a prompt
-        # finishing here joins this same step's decode dispatch
-        for slot in list(self._prefilling):
-            st = self._prefilling[slot]
-            if self._prefill_step(st):
-                del self._prefilling[slot]
-                self._activate(slot, st["req"], st["logits"],
-                               st["caches"])
+        with span("pool.admit"):
+            self._admit()
+            # advance every in-flight chunked prefill by one segment; a
+            # prompt finishing here joins this same step's decode dispatch
+            for slot in list(self._prefilling):
+                st = self._prefilling[slot]
+                with span("pool.prefill"):
+                    whole = self._prefill_step(st)
+                if whole:
+                    del self._prefilling[slot]
+                    self._activate(slot, st["req"], st["logits"],
+                                   st["caches"])
         if not self._active:
+            self._read_timing()
             return 0
-        if self.speculative and self._draft_fn is None:
-            if self._spec_mode or not self.adaptive:
-                tokens, lpinfo = self._spec_chunk_advance()
-                self.stats["spec_dispatches"] += 1
-                if self.adaptive:
-                    self._judge_speculation()
-            else:
-                # the fallback to plain decode drops any pending residual
-                # exclusion (the plain path draws from full p)
-                self._excl.fill_(-1)
-                tokens, lpinfo = self._plain_advance()
-                self.stats["plain_dispatches"] += 1
-                self._plain_left -= 1
-                if self._plain_left <= 0:         # probe speculation
-                    self._sync_ids_buf()
-                    self._spec_mode = True
-                    self._spec_seen = 0
-                    self._accept_ema = None
-        elif self.speculative:
-            tokens, lpinfo = self._spec_advance()
-        else:
-            tokens, lpinfo = self._plain_advance()
+        with span("pool.decode"):
+            tokens, lpinfo = self._advance()
+        self._read_timing()
         self.stats["steps"] += 1
         self.stats["occupancy_sum"] += len(self._active)
 
@@ -863,6 +896,73 @@ class ContinuousEngine:
         self.stats["tokens"] += emitted
         return emitted
 
+    def _advance(self):
+        """One decode dispatch over the pool on the path the engine is on
+        (speculative, its plain fallback, host drafts or plain)."""
+        if self.speculative and self._draft_fn is None:
+            if self._spec_mode or not self.adaptive:
+                tokens, lpinfo = self._spec_chunk_advance()
+                self.stats["spec_dispatches"] += 1
+                if self.adaptive:
+                    self._judge_speculation()
+            else:
+                # the fallback to plain decode drops any pending residual
+                # exclusion (the plain path draws from full p)
+                self._excl.fill_(-1)
+                tokens, lpinfo = self._plain_advance()
+                self.stats["plain_dispatches"] += 1
+                self._plain_left -= 1
+                if self._plain_left <= 0:         # probe speculation
+                    self._sync_ids_buf()
+                    self._spec_mode = True
+                    self._spec_seen = 0
+                    self._accept_ema = None
+        elif self.speculative:
+            tokens, lpinfo = self._spec_advance()
+        else:
+            tokens, lpinfo = self._plain_advance()
+        return tokens, lpinfo
+
+    def _timed(self, kind: str, req: _Request | None = None, rows: int = 0,
+               tokens: int = 0):
+        """Start timing a prefill call of `req` (`rows` computed, `tokens`
+        of them valid: added to the request's, counted at its activation)
+        or a decode dispatch; the returned `stop()` ends it, before any
+        host read. On the card a CUDA event pair, read later
+        (`_read_timing`); on the CPU the host clock."""
+        if req is not None:
+            req.prefill_rows += rows
+            req.prefill_tokens += tokens
+        key = f"{kind}_device_ns"
+        if self.device.type != "cuda":
+            t0 = _time.perf_counter_ns()
+
+            def stop():
+                self.stats[key] += _time.perf_counter_ns() - t0
+
+            return stop
+        stream = torch.cuda.current_stream(self.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+
+        def stop():
+            end.record(stream)
+            self._timing.append((key, start, end))
+
+        return stop
+
+    def _read_timing(self):
+        """Count the event pairs the device has finished (no wait: the
+        step's harvest has synchronised; the rest stay for a later step)."""
+        left = []
+        for key, start, end in self._timing:
+            if end.query():
+                self.stats[key] += round(start.elapsed_time(end) * 1e6)
+            else:
+                left.append((key, start, end))
+        self._timing = left
+
     def _live_pos_max(self) -> int:
         return int(max(self._pos[s] for s in self._active))
 
@@ -878,9 +978,11 @@ class ContinuousEngine:
         carry = self._carry
         carry.pos_max = self._live_pos_max()
         want = self._want_logprobs()
+        stop = self._timed("decode")
         self._carry, toks, lps, tis, tvs = self.gen._decode_chunk_mixed(
             carry, self.chunk, self.sampling, self._temps, self._counts,
             self._fp, self._pp, self._bias, logprobs=want)
+        stop()
         for slot in self._active:
             self._pos[slot] += self.chunk
         lpinfo = {}
@@ -957,6 +1059,7 @@ class ContinuousEngine:
         pos_hi = self._live_pos_max()
         want = self._want_logprobs()
         steps = []
+        stop = self._timed("decode")
         for j in range(self.chunk):
             live = ~done
             # `excl` holds the last rejection's token: this draw IS the
@@ -1015,6 +1118,7 @@ class ContinuousEngine:
         self._carry = DecodeCarry(logits, caches, pos, done, seeds,
                                   c.pos_max)
         self._excl = excl
+        stop()
         toks = torch.stack([s[0] for s in steps]).cpu().numpy()
         valid = torch.stack([s[1] for s in steps]).cpu().numpy()
         n_live = len(self._active)
@@ -1063,6 +1167,7 @@ class ContinuousEngine:
                 np.asarray(req.tokens[req.consumed:] + [int(t1g[slot])],
                            np.int32)])
             drafts[slot] = draft(hist, k, n, pad)
+        stop = self._timed("decode")
         live = ~c.done
         pl = apply_penalties(c.logits, self._counts, self._fp, self._pp,
                              self._bias)
@@ -1092,6 +1197,7 @@ class ContinuousEngine:
         self._carry = DecodeCarry(
             torch.where(live[:, None], new_logits, c.logits), c.caches,
             c.pos + n_acc, c.done, c.seeds, c.pos_max)
+        stop()
         n_acc, t1 = n_acc.cpu().numpy(), t1.cpu().numpy()
         for slot in self._active:
             self._pos[slot] += int(n_acc[slot])
@@ -1205,7 +1311,8 @@ class ContinuousDriver:
                      "seed": seed, "logit_bias": logit_bias,
                      "logprobs": logprobs,
                      "penalties": (float(frequency_penalty),
-                                   float(presence_penalty))}
+                                   float(presence_penalty)),
+                     "submitted_ns": _time.perf_counter_ns()}
         if deadline_s is not None:
             if not deadline_s > 0:          # rejects 0, <0 AND nan
                 raise ValueError(
@@ -1470,7 +1577,10 @@ class ContinuousDriver:
                         frequency_penalty=fp, presence_penalty=pp,
                         logit_bias=ctl.get("logit_bias"),
                         logprobs=ctl.get("logprobs"),
-                        seed=ctl.get("seed"))
+                        seed=ctl.get("seed"),
+                        # the queue wait counts from the caller's submit,
+                        # the step it waited out here included
+                        enqueued_ns=ctl["submitted_ns"])
                     ctl["rid"] = rid
                     self._events[rid] = (evt, box)
                     if "deadline" in ctl:

@@ -526,15 +526,24 @@ def test_pool_seeded_sampling_answers_in_the_same_shape(pool_twins):
         assert _json(url, "/generate", payload)[1]["text"] == first["text"]
 
 
+# the port's counters of the pool's time (`serving/continuous.py`)
+POOL_TIMING = ("queue_wait_ns", "prefills", "prefill_rows", "prefill_tokens",
+               "prefill_device_ns", "decode_device_ns")
+
+
 def test_pool_stats_and_metrics_answer_as_jax(pool_twins):
     """/stats' decode_pool block and /metrics' pool lines after the same
-    requests: equal keys and equal counters."""
+    requests: equal keys and equal counters, and the port's own counters
+    of the pool's time (`POOL_TIMING`) besides."""
     for url in (pool_twins["jax"], pool_twins["torch"]):
         _json(url, "/generate", {"prompt": "registre", "max_tokens": 4})
     _, jstats = _json(pool_twins["jax"], "/stats")
     _, stats = _json(pool_twins["torch"], "/stats")
     jpool, pool = jstats["decode_pool"], stats["decode_pool"]
-    assert set(pool) == set(jpool)
+    assert set(pool) == set(jpool) | set(POOL_TIMING)
+    assert pool["prefills"] == pool["admitted"] and pool["queue_wait_ns"] > 0
+    assert 0 < pool["prefill_tokens"] <= pool["prefill_rows"]
+    assert pool["prefill_device_ns"] > 0 and pool["decode_device_ns"] > 0
     for key in ("slots", "prefix_cache", "speculative", "admitted",
                 "cancelled", "preempted", "timeouts"):
         assert pool[key] == jpool[key], (key, pool, jpool)
@@ -545,7 +554,8 @@ def test_pool_stats_and_metrics_answer_as_jax(pool_twins):
              if ln.startswith("ragdpo_decode_pool")}
     assert names and names == {
         ln.split()[0].split("{")[0] for ln in jlines.splitlines()
-        if ln.startswith("ragdpo_decode_pool")}
+        if ln.startswith("ragdpo_decode_pool")} | {
+        f"ragdpo_decode_pool_{key}" for key in POOL_TIMING}
 
 
 def test_pool_stream_close_cancels_on_both(pool_twins):
