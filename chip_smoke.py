@@ -37,9 +37,18 @@ Phases, in order; any failure exits non-zero before the result lines:
    for bit against its twin, the same bits twice, beside the library strip
    (`torch._int_mm` + strided `amax`), and with K6 at Q 64 on the scale
    rows; then flash attention's dq and dk/dv kernels at the
-   training shape and others (Dh 80 and 320 too); timed with CUDA events
+   training shape and others (Dh 80 and 320 too); then the decoder's
+   causal prefill attention (`flash_prefill`) at Mistral-Nemo-12B's 32
+   query heads over 8 KV heads of 128 in bf16, prompts of 2,048, 4,096 and
+   8,192 rows, against its plain twin in f32 on the same inputs; timed with
+   CUDA events
    and the profiler, beside each kernel's bound and, where one PyTorch
-   call computes the same function, that call's time and device time;
+   call computes the same function, that call's time and device time.
+   Wherever the decoder runs on the card (6e, 6e′, 6f, 6g, 6h), every
+   layer of a forward whose query rows fill the prefill kernel's 64-row
+   tile must launch it, and every layer of any other forward (a decode
+   step) must run its plain twin: `DecoderLayers` counts both from the
+   forwards' inputs, and the phase checks the kernel counters against it;
 3c. seeded init — `models/flax_init.py` on the card: its Triton draw
    (threefry bits) bit for bit against its twin (int64 torch ops) at
    counters past 2³² and in a weight's transposed order, both timed over
@@ -317,6 +326,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -339,6 +349,8 @@ FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # this tolerance (tests/test_torch_maxsim_tf32.py)
 MAXSIM_TOL = dict(rtol=1e-5, atol=1e-4)
 SERVE_KERNELS = ("flash_fwd", "ell_topk", "fused_topk")
+# the decoder's prefill attention: one prompt filling these rows
+PREFILL_ROWS = (2048, 4096, 8192)
 MAXSIM_KERNELS = ("flash_fwd", "ell_topk", "fused_topk", "maxsim")
 # phase 6h (a): the mesh's entry points run K1 (encoders) and K4 (dense)
 MESH_KERNELS = ("flash_fwd", "fused_topk")
@@ -464,6 +476,87 @@ def check(ok, what) -> None:
     """A failed phase check: raises (and so exits non-zero), even under -O."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def twins_on_the_card() -> dict:
+    """The plain twins that ran on CUDA tensors, less the decoder's plain
+    attention, which a decode step takes by design: `decoder_attention`
+    checks its count."""
+    from rag_dpo_tpu_torch.ops import _kernels
+
+    return {n: c for n, c in _kernels.PLAIN_ON_CUDA.items()
+            if n != "flash_prefill"}
+
+
+class DecoderLayers:
+    """The decoder's attention calls on the card, counted from each
+    `DecoderModel` forward's inputs alone: every layer of a forward whose
+    S · nh / nkv query rows fill the prefill kernel's tile should launch
+    `flash_prefill`, every layer of any other (a decode step's 1 + k rows)
+    should run the plain twin. A prefill that took the twin for any other
+    reason (a dtype, a head width, a key mask) shows as a gap against
+    `_kernels`' counters. `install` makes `_kernels.reset_counts` reset it
+    too."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.kernel = self.plain = 0
+
+    def reset(self) -> None:
+        with self.lock:
+            self.kernel = self.plain = 0
+
+    def install(self) -> None:
+        import inspect
+
+        from rag_dpo_tpu_torch.models.decoder import DecoderModel
+        from rag_dpo_tpu_torch.ops import _kernels
+        from rag_dpo_tpu_torch.ops.causal_attention import TILE_ROWS
+
+        forward, reset = DecoderModel.forward, _kernels.reset_counts
+        signature = inspect.signature(forward)
+
+        def counted(model, *args, **kwargs):
+            out = forward(model, *args, **kwargs)
+            given = signature.bind(model, *args, **kwargs).arguments
+            x = given.get("inputs_embeds")
+            x = given["input_ids"] if x is None else x
+            if x.is_cuda:
+                cfg = model.config
+                group = cfg.num_heads // cfg.num_kv_heads
+                with self.lock:
+                    if x.shape[1] * group >= TILE_ROWS:
+                        self.kernel += cfg.num_layers
+                    else:
+                        self.plain += cfg.num_layers
+            return out
+
+        def reset_both() -> None:
+            reset()
+            self.reset()
+
+        DecoderModel.forward = counted
+        _kernels.reset_counts = reset_both
+
+
+DECODER_LAYERS = DecoderLayers()
+
+
+def decoder_attention(phase: str) -> dict:
+    """`flash_prefill`'s launches and its plain twin's calls on the card
+    since the counters' reset, which must equal `DECODER_LAYERS`' count
+    (the phase launched the kernel at least once)."""
+    from rag_dpo_tpu_torch.ops import _kernels
+
+    got = {"launches": _kernels.LAUNCHES["flash_prefill"],
+           "plain_layers": _kernels.PLAIN_ON_CUDA["flash_prefill"]}
+    with DECODER_LAYERS.lock:
+        want = {"launches": DECODER_LAYERS.kernel,
+                "plain_layers": DECODER_LAYERS.plain}
+    check(got == want and got["launches"] > 0,
+          f"phase {phase}: flash_prefill {got}, the decoder's forwards "
+          f"asked {want}")
+    return got
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -769,6 +862,67 @@ def check_flash(dev, gen) -> dict:
     # path's launches are counted; ingest_ and bf16_ keys hold the others
     return {**timed, "all_f32_cases_max_abs_err": worst,
             "smem_bytes_dh64": smem}
+
+
+def check_prefill(dev, gen) -> dict:
+    """The decoder's causal prefill attention at Mistral-Nemo-12B's heads
+    (32 over 8 KV heads of 128, bf16), one prompt filling 2,048, 4,096
+    and 8,192 rows: `flash_prefill` against `causal_attention_plain` in
+    f32 on the same inputs within the `cuda` tests' tolerance (f32
+    accuracy, then half a bf16 ulp for the one rounding), one launch a
+    call; the kernel timed (CUDA events and the profiler) beside the twin
+    as the decoder would run it (bf16 in, f32 inside) and beside its bound:
+    the causal products 2·Dh·nh·n(n+1) at the bf16 peak, n·nh(n+1)/2
+    exponentials, q, k, v and the output once."""
+    import torch
+
+    from rag_dpo_tpu_torch.ops import _kernels
+    from rag_dpo_tpu_torch.ops.causal_attention import (
+        causal_attention_plain,
+        flash_prefill,
+        kernel_rows,
+    )
+
+    nh, nkv, dh = 32, 8, 128
+    out = {}
+    for n in PREFILL_ROWS:
+        q = torch.randn((1, n, nh, dh), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((1, n, nkv, dh), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        pos = torch.arange(n, device=dev)[None]
+        rows = kernel_rows(pos, torch.ones((1, n), dtype=torch.bool,
+                                           device=dev))
+        before = _kernels.LAUNCHES["flash_prefill"]
+        got = flash_prefill(q, k, v, *rows).float()
+        want = causal_attention_plain(q.float(), k.float(), v.float(), pos)
+        torch.cuda.synchronize()
+        check(_kernels.LAUNCHES["flash_prefill"] == before + 1,
+              "flash_prefill did not count its launch")
+        err = (got - want).abs()
+        check(bool((err <= 2.0 ** -8 * want.abs() + 1e-5).all()),
+              f"flash_prefill at {n} rows: max abs err {float(err.max())}")
+        flops = 2.0 * dh * nh * n * (n + 1)
+        nbytes = 2.0 * n * dh * (2 * nh + 2 * nkv)
+        row = {"max_abs_err": float(err.max()),
+               "kernel_ms": cuda_ms(lambda: flash_prefill(q, k, v, *rows)),
+               "kernel_device_ms": device_ms_tries(
+                   lambda: flash_prefill(q, k, v, *rows)),
+               "plain_ms": cuda_ms(
+                   lambda: causal_attention_plain(q, k, v, pos), iters=3,
+                   warmup=1),
+               **bound(flops, nbytes, BF16_FLOPS,
+                       exps=nh * n * (n + 1) / 2)}
+        row["causal_tflops"] = flops / row["kernel_ms"] / 1e9
+        log(f"flash_prefill [1,{n},{nh}/{nkv},{dh}] bf16: max_abs_err "
+            f"{row['max_abs_err']:.3g}; kernel {row['kernel_ms']:.4f} ms "
+            f"(device {fmt_ms(row['kernel_device_ms'])}, "
+            f"{row['causal_tflops']:.1f} TFLOP/s of causal products), "
+            f"plain {row['plain_ms']:.3f} ms; bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']})")
+        out.update({f"rows_{n}_{key}": x for key, x in row.items()})
+        del q, k, v, got, want
+    return out
 
 
 def time_serve_flash(dev, gen, shapes: dict) -> dict:
@@ -2467,8 +2621,9 @@ def serve_mesh(stack, questions, dev, seed: int) -> dict:
     widths under `context_parallel` against "flash" (1e-5), and the
     Mistral-Nemo-12B (int8, random init from `--seed`) through
     `shard_params(decoder_flax_tree(model), mesh)` at model=1: 8 greedy
-    tokens equal to the unsharded generator's; K1 and K4 must launch there
-    and no twin may run. (b) MESH_SHARDS logical shards on the one card:
+    tokens equal to the unsharded generator's; K1 and K4 must launch there,
+    the decoder's attention as `decoder_attention` checks it, and no other
+    twin may run. (b) MESH_SHARDS logical shards on the one card:
     the collectives' local halves (K4 with the penalty on each row slice)
     and the merge against one K4 call over all rows; the ring at
     RING_SHAPE (one row of length 6,000, one of 0), K/V in MESH_SHARDS
@@ -2603,7 +2758,8 @@ def serve_mesh(stack, questions, dev, seed: int) -> dict:
     check(np.array_equal(got_tok, want_tok),
           f"6h TP 12B tokens {got_tok} != {want_tok}")
     launches = dict(_kernels.LAUNCHES)
-    plain = dict(_kernels.PLAIN_ON_CUDA)
+    plain = twins_on_the_card()
+    attention = decoder_attention("6h")
     del gen, tp
     gc.collect()
     torch.cuda.empty_cache()
@@ -2612,7 +2768,8 @@ def serve_mesh(stack, questions, dev, seed: int) -> dict:
         f"(model=1) built in {tp_build_s:.2f} s, {MESH_NEW_TOKENS} greedy "
         f"tokens equal: {got_tok.tolist()} ({tp_s:.2f} s; unsharded "
         f"{plain_s:.2f} s); launches {launches}, twins {plain}")
-    out.update(launches=launches, plain_on_cuda=plain, store=arms,
+    out.update(launches=launches, plain_on_cuda=plain,
+               prefill_attention=attention, store=arms,
                dp_embed_err=dp_err, ring_encoder_err=ring_err,
                tp_12b_tokens_s=tp_s, tp_12b_plain_s=plain_s)
 
@@ -4237,10 +4394,11 @@ def serve_generate(stack, questions, dev, seed: int) -> dict:
         check(resp.answer.strip() and resp.n_candidates,
               f"no answer for {question!r}")
     launches = {n: _kernels.LAUNCHES[n] for n in SERVE_KERNELS}
-    plain = dict(_kernels.PLAIN_ON_CUDA)
+    plain = twins_on_the_card()
     for name in SERVE_KERNELS:
         check(launches[name] > 0, f"{name} never launched in phase 6e")
     check(not any(plain.values()), f"a twin ran in phase 6e: {plain}")
+    attention = decoder_attention("6e")
     p50 = float(np.median([w for w, _ in answers]))
     retrieve = float(np.median([r.retrieval_time + r.rerank_time
                                 for _, r in answers]))
@@ -4356,7 +4514,7 @@ def serve_generate(stack, questions, dev, seed: int) -> dict:
            "answer_generation_ms": generate * 1e3,
            "answer_prompt_tokens": lengths, "agent_ms": agent_s * 1e3,
            "agent_choose_calls": len(chosen), "launches": launches,
-           "judge": judge}
+           "prefill_attention": attention, "judge": judge}
     del gstack, llm, gen, model, state, pipe, agent, prefill, recording, \
         choose, counting
     return out
@@ -4379,7 +4537,7 @@ def serve_judge(llm, dev) -> dict:
     record = run_judge_axis(llm, JUDGE_QUESTIONS, dev)
     seconds = time.perf_counter() - t0
     launches = {n: _kernels.LAUNCHES[n] for n in ("ell_topk", "fused_topk")}
-    plain = dict(_kernels.PLAIN_ON_CUDA)
+    plain = twins_on_the_card()
     code, line = verdict(record)
     check(code == 0, f"judge (6e′): {line}; first judge error: "
                      f"{record['first_judge_error']}")
@@ -4390,6 +4548,7 @@ def serve_judge(llm, dev) -> dict:
           f"{record['veto_sample']}")
     check(all(launches.values()) and not any(plain.values()),
           f"judge (6e′): launches {launches}, plain twins {plain}")
+    attention = decoder_attention("6e′")
     per_q = record["judge_seconds_per_question"]
     log(f"judge (6e′): {record['n_judged_non_null']}/{record['n_questions']}"
         f" judged by the 12B in choose mode, {record['judge_calls']} choose "
@@ -4402,7 +4561,9 @@ def serve_judge(llm, dev) -> dict:
         "n_questions", "n_judged_non_null", "judge_mean", "bucket_sample",
         "veto_sample", "judge_vetoes_sample", "global_score_with_judge",
         "judge_seconds", "judge_seconds_per_question", "judge_calls",
-        "judge_wall_seconds")} | {"launches": launches, "phase_s": seconds}
+        "judge_wall_seconds")} | {"launches": launches,
+                                  "prefill_attention": attention,
+                                  "phase_s": seconds}
 
 
 
@@ -4658,7 +4819,7 @@ def serve_continuous(stack, questions, dev, seed: int, root: pathlib.Path,
         for w in workers:
             w.join()
         launches = {n: _kernels.LAUNCHES[n] for n in SERVE_KERNELS}
-        plain = dict(_kernels.PLAIN_ON_CUDA)
+        plain = twins_on_the_card()
         for code, data in replies:
             check(code == 200 and data["error"] is None
                   and data["answer"].strip(),
@@ -4666,6 +4827,7 @@ def serve_continuous(stack, questions, dev, seed: int, root: pathlib.Path,
         for name in SERVE_KERNELS:
             check(launches[name] > 0, f"{name} never launched in phase 6f")
         check(not any(plain.values()), f"a twin ran in phase 6f: {plain}")
+        attention = decoder_attention("6f")
         steps = engine.stats["steps"] - snap["steps"]
         occupancy = (engine.stats["occupancy_sum"]
                      - snap["occupancy_sum"]) / max(steps, 1)
@@ -4718,7 +4880,7 @@ def serve_continuous(stack, questions, dev, seed: int, root: pathlib.Path,
            "query_llm_calls": calls, "query_steps": steps,
            "query_mean_occupancy": occupancy, "decode_pool": dpool,
            "launches": launches, "plain_on_cuda": plain,
-           **pool, "vision": vision}
+           "prefill_attention": attention, **pool, "vision": vision}
     del system, llm, engine, generate, recording
     return out
 
@@ -5290,7 +5452,7 @@ def serve_vision(system, questions, dev, seed: int) -> dict:
         del engine.step, engine.submit_embeds, lg.compose
         srv.shutdown()
     launches = {k: _kernels.LAUNCHES[k] for k in SERVE_KERNELS}
-    plain = dict(_kernels.PLAIN_ON_CUDA)
+    plain = twins_on_the_card()
     for code, data in replies:
         check(code == 200 and data["error"] is None,
               f"a /query beside the image request: {code} {str(data)[:300]}")
@@ -5303,6 +5465,7 @@ def serve_vision(system, questions, dev, seed: int) -> dict:
     for name in SERVE_KERNELS:
         check(launches[name] > 0, f"{name} never launched in phase 6g")
     check(not any(plain.values()), f"a twin ran in phase 6g: {plain}")
+    attention = decoder_attention("6g")
     t0 = time.perf_counter()
     decision = ImageClassifier(vision_llm=llm).classify(square)
     classify_s = time.perf_counter() - t0
@@ -5337,6 +5500,7 @@ def serve_vision(system, questions, dev, seed: int) -> dict:
             "beside_mean_occupancy": occupancy,
             "classifier": [decision.label, decision.method],
             "launches": launches, "plain_on_cuda": plain,
+            "prefill_attention": attention,
             "peak_device_gb": peak_gb, "phase_s": phase_s}
 
 
@@ -6171,6 +6335,7 @@ def main() -> int:
 
     from rag_dpo_tpu_torch.ops import _kernels
 
+    DECODER_LAYERS.install()
     build_s = _kernels.build_all()
     log(f"build: {build_s:.2f} s for {', '.join(_kernels.KERNELS)}; nvcc "
         + (", ".join(f"{src} {s:.2f} s" for src, s in
@@ -6190,6 +6355,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     flash = check_flash(dev, gen)
+    prefill = check_prefill(dev, gen)
     ell = check_ell(dev, gen)
     mx = check_maxsim(dev, gen, colbert_len)
     k4 = check_fused_topk(dev, gen)
@@ -6329,6 +6495,19 @@ def main() -> int:
          **serve_phase_launches["flash_fwd"],
          **ingest_launches["flash_fwd"],
          **flash},
+        {"name": "flash_prefill", "route": "cuda",
+         "source": "rag_dpo_tpu_torch/csrc/flash_prefill.cu",
+         "replaces": "none: rag_dpo_tpu/models/decoder.py:301 (einsums)",
+         "instructions": "mma.sync m16n8k16 bf16 (P·V with P as three bf16 "
+                         "pieces; f32: 3xTF32 on m16n8k8)",
+         **{f"{phase}_launches": record["prefill_attention"]["launches"]
+            for phase, record in (
+                ("generate", path["generate"]),
+                ("judge", path["generate"]["judge"]),
+                ("continuous", path["continuous"]),
+                ("vision", path["continuous"]["vision"]),
+                ("mesh", path["mesh"]))},
+         **prefill},
         {"name": "ell_topk", "route": "cuda",
          "source": "rag_dpo_tpu_torch/csrc/ell_topk.cu",
          "replaces": "rag_dpo_tpu/ops/sparse.py:71",

@@ -16,7 +16,7 @@ Numerics kept from the reference:
   widened to it, the product in that dtype, then `* scale` cast to it; the
   int8 kernel stays int8 in memory (a bf16 copy lives only for the call);
 * attention logits, softmax and the weighted sum in f32, masked keys set to
-  `NEG_INF`; the tied head is Flax's `Embed.attend`, which computes in the
+  −1e30; the tied head is Flax's `Embed.attend`, which computes in the
   module's dtype (`hidden` and the table cast to `config.dtype`);
 * the int8 KV cache quantizes each fresh (position, head) row with
   `scale = amax / 127`, rounds half to even, and attends the cache
@@ -36,12 +36,21 @@ rank attends all heads, as JAX's program still computes there. The int8
 projections stay whole on every rank (JAX's rules replicate `kernel_q`).
 
 Two things differ in how, not in what, is computed. The cache is updated in
-place (the JAX module returns a new one). Attention runs in blocks of query
-rows over the first `kv_len` cache rows, where `kv_len` is a bound the
-caller knows on the largest position written + 1: every key past it is
-masked for every query, and a masked key adds exactly 0 after
-`exp(-1e30 - max)`, so only the order of the sums changes. This keeps a long
-prompt from materialising `[B, KV, S, group, max_seq_len]` f32 logits.
+place (the JAX module returns a new one). Attention spans only the first
+`kv_len` cache rows, where `kv_len` is a bound the caller knows on the
+largest position written + 1: every key past it is masked for every query,
+and a masked key adds exactly 0 after `exp(-1e30 - max)`, so only the order
+of the sums changes. `ops.causal_attention` computes it. On the card, where
+a call's query rows fill one of its tiles (a prefill, a prefill segment, a
+prefix hit's suffix, LLaVA's embeds, the judge's prompts), that is the
+kernel `csrc/flash_prefill.cu`: one fused causal pass a layer over the
+cache's rows, the heads that share a KV head together, Q·Kᵀ on the tensor
+cores exact in f32, P carried at 24 bits against V, the softmax in f32;
+key tiles past the causal edge and query tiles wholly past the prompt's
+last written row are skipped. Elsewhere (the CPU, a decode step's 1 + k
+rows) it is the plain twin: f32 einsums in blocks of query rows of at most
+`ATTN_BLOCK_BYTES` of logits, so a long prompt never materialises
+`[B, KV, S, group, max_seq_len]` f32 logits.
 """
 
 from __future__ import annotations
@@ -54,12 +63,9 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.causal_attention import causal_attention, kernel_rows
 from ..parallel.collectives import gather_rows
 from .sharding import split_size
-
-NEG_INF = -1e30
-# f32 attention logits of one block of query rows, in bytes
-ATTN_BLOCK_BYTES = 1 << 29
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,28 +251,34 @@ class Frame:
     their rotary tables, where the fresh K/V rows land in the caches (`rows`
     [B, S] of batch rows `bidx`: the window `lax.dynamic_update_slice`
     writes, its start clamped to max_len − S) and how many key rows are
-    attended (`kv_len`: S without a cache)."""
+    attended (`kv_len`: S without a cache); on the card, what the
+    attention kernel reads of the rows (`attn_rows`: `kernel_rows`)."""
     positions: torch.Tensor
     tables: tuple
     kv_len: int
     rows: torch.Tensor | None = None
     bidx: torch.Tensor | None = None
+    attn_rows: tuple | None = None
 
     @classmethod
     def make(cls, cfg: DecoderConfig, positions, max_len: int | None = None,
-             kv_len: int | None = None) -> "Frame":
+             kv_len: int | None = None, write_mask=None) -> "Frame":
         """`max_len`: the caches' rows (None: no cache); `kv_len` bounds the
-        cache rows attended (default all of them)."""
+        cache rows attended (default all of them); `write_mask` [B, S]: the
+        rows that write the cache."""
         b, s = positions.shape
         tables = rope_tables(positions, cfg.dh, cfg.rope_theta)
+        attn_rows = (kernel_rows(positions, write_mask)
+                     if positions.is_cuda else None)
         if max_len is None:
-            return cls(positions, tables, s)
+            return cls(positions, tables, s, attn_rows=attn_rows)
         dev = positions.device
         start = positions[:, 0].clamp(0, max_len - s)
         return cls(positions, tables,
                    max_len if kv_len is None else min(int(kv_len), max_len),
                    rows=start[:, None] + torch.arange(s, device=dev),
-                   bidx=torch.arange(b, device=dev)[:, None])
+                   bidx=torch.arange(b, device=dev)[:, None],
+                   attn_rows=attn_rows)
 
 
 def _tp_of(cfg: DecoderConfig, tp):
@@ -354,24 +366,10 @@ class GQAttention(nn.Module):
         else:
             k_all, v_all = k, v
 
-        group = nh // nkv
-        kf, vf = _as(k_all, torch.float32), _as(v_all, torch.float32)
-        qg = _as(q, torch.float32).reshape(b, s, nkv, group, dh)
-        key_pos = torch.arange(kv_len, device=hidden.device)
-        ctx = torch.empty((b, s, nkv, group, dh), dtype=torch.float32,
-                          device=hidden.device)
-        step = max(1, ATTN_BLOCK_BYTES // (4 * b * nh * kv_len))
-        for i in range(0, s, step):
-            logits = torch.einsum("bskgd,bmkd->bksgm", qg[:, i:i + step],
-                                  kf) / (dh ** 0.5)
-            # causal/cache mask: query at pos p sees keys at pos ≤ p
-            mask = key_pos[None, None, None, None, :] \
-                <= frame.positions[:, None, i:i + step, None, None]
-            if attn_mask is not None:   # [B, kv_len] key validity
-                mask = mask & attn_mask[:, None, None, None, :kv_len]
-            probs = torch.softmax(
-                torch.where(mask, logits, NEG_INF), dim=-1)
-            ctx[:, i:i + step] = torch.einsum("bksgm,bmkd->bskgd", probs, vf)
+        # write_mask marks padding rows only where it guards a cache write
+        ctx = causal_attention(q, k_all, v_all, frame.positions,
+                               None if cache is None else write_mask,
+                               attn_mask, frame.attn_rows)
         ctx = ctx.reshape(b, s, nh * dh)
         if self.gather:   # this rank's input features of o_proj
             per = nh * dh // self.tp.size
@@ -454,7 +452,8 @@ class DecoderModel(nn.Module):
         if positions is None:
             positions = torch.arange(s, device=hidden.device).expand(b, s)
         frame = Frame.make(cfg, positions, None if caches is None
-                           else caches[0]["k"].shape[1], kv_len)
+                           else caches[0]["k"].shape[1], kv_len,
+                           None if caches is None else write_mask)
         for i, layer in enumerate(self.layers()):
             hidden, _ = layer(hidden, frame,
                               caches[i] if caches is not None else None,

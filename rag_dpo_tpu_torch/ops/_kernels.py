@@ -41,7 +41,8 @@ KERNELS = {"flash_fwd": "flash_fwd", "ell_topk": "ell_topk",
            "maxsim": "maxsim", "fused_topk": "fused_topk",
            "pooled_max": "pooled", "fused_candidates": "seg_candidates",
            "int8_block_max_bf16": "int8_block_max",
-           "int8_block_max_i8": "int8_block_max"}
+           "int8_block_max_i8": "int8_block_max",
+           "flash_prefill": "flash_prefill"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,7 +54,8 @@ PLAIN_ON_CUDA: dict[str, int] = {name: 0 for name in KERNELS}
 BUILD_LOGS: dict[str, str] = {}
 BUILD_SECONDS: dict[str, float] = {}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C signature of each library's entry point (all return a cudaError_t)
 SIGNATURES = {
     # dtype, q, k, v, lengths, out, lse, B, H, S, Dh, scale, stream
@@ -82,6 +84,9 @@ SIGNATURES = {
     "int8_block_max_bf16": [_P, _P, *[_I] * 6, _P, _P],
     # q_i8, e_i8, Q, N, D, block, nq, stages, resident, out, stream
     "int8_block_max_i8": [_P, _P, *[_I] * 7, _P, _P],
+    # dtype, q, k, v, pos, counts, out, B, S, nh, nkv, Dh, kv_len, kv_bs,
+    # kv_rs, scale, stream
+    "flash_prefill": [_I, *[_P] * 6, *[_I] * 6, _L, _L, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -1590,6 +1590,189 @@ def test_greedy_and_speculative_decode_on_the_card(dev, kw):
     np.testing.assert_array_equal(got, want)
 
 
+# ------------------------------------- the decoder's causal prefill kernel
+def _prefill_case(dev, b, s, nh, nkv, dh, dtype, lens, start=None,
+                  kv_rows=None, seed=0):
+    """q [b, s, nh, Dh], a K/V cache of `kv_rows` rows whose first kv_len =
+    max(start) + s are attended (NaN past them), positions from `start`,
+    and the write_mask of each row's first `lens` rows; the padding rows'
+    queries are NaN."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    start = torch.tensor(start or [0] * b, device=dev)
+    kv_len = int(start.max()) + s
+    kv_rows = kv_rows or kv_len + 16
+    q = torch.randn((b, s, nh, dh), generator=gen, device=dev).to(dtype)
+    cache = [torch.randn((b, kv_rows, nkv, dh), generator=gen,
+                         device=dev).to(dtype) for _ in range(2)]
+    for c in cache:
+        c[:, kv_len:] = float("nan")
+    offs = torch.arange(s, device=dev)[None]
+    pos = start[:, None] + offs
+    wmask = offs < torch.tensor(lens, device=dev)[:, None]
+    q[~wmask] = float("nan")
+    return q, cache[0][:, :kv_len], cache[1][:, :kv_len], pos, wmask
+
+
+def _check_prefill(q, k, v, pos, wmask):
+    """The kernel's valid rows within f32 accuracy of the twin's f32 result
+    (bf16: rounded once, so within half a bf16 ulp more); the query tiles
+    wholly past a row's last written row are zeros. Returns the worst
+    error."""
+    from rag_dpo_tpu_torch.ops.causal_attention import (
+        TILE_ROWS,
+        causal_attention_plain,
+        flash_prefill,
+        kernel_rows,
+    )
+
+    before = _kernels.LAUNCHES["flash_prefill"]
+    got = flash_prefill(q, k, v, *kernel_rows(pos, wmask)).float()
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["flash_prefill"] == before + 1
+    want = causal_attention_plain(q.float(), k.float(), v.float(), pos)
+    rel = 2.0 ** -8 if q.dtype == torch.bfloat16 else 0.0
+    err = (got - want).abs()[wmask]
+    assert torch.isfinite(got[wmask]).all()
+    assert (err <= rel * want.abs()[wmask] + 1e-5).all(), float(err.max())
+    group = q.shape[2] // k.shape[2]
+    for r, n in enumerate(wmask.sum(1).tolist()):
+        row0 = -(-n * group // TILE_ROWS) * TILE_ROWS   # first skipped tile
+        assert (got[r, -(-row0 // group):] == 0).all()
+    return float(err.max())
+
+
+@pytest.mark.parametrize("s,n", [(32, 1), (64, 63), (64, 64), (128, 65),
+                                 (4096, 2049), (8192, 5000), (8192, 8192)])
+def test_prefill_kernel_matches_plain_at_the_12b_heads(dev, s, n):
+    """Mistral-Nemo-12B's 32 query heads over 8 KV heads of 128 in bf16, a
+    prompt of n tokens in its bucket of s rows."""
+    _check_prefill(*_prefill_case(dev, 1, s, 32, 8, 128, torch.bfloat16,
+                                  [n], seed=n))
+
+
+@pytest.mark.parametrize("b,s,nh,nkv,dh,dtype,lens,start", [
+    # a suffix after a cached prefix (a prefix hit, a prefill segment)
+    (1, 1024, 32, 8, 128, torch.bfloat16, [700], [3000]),
+    (2, 256, 32, 8, 128, torch.bfloat16, [256, 100], [512, 37]),
+    # a TP rank's heads (model=4)
+    (1, 2048, 8, 2, 128, torch.bfloat16, [1500], None),
+    # f32 at small widths (the tiny decoders: 4 heads over 2 of 16)
+    (2, 100, 4, 2, 16, torch.float32, [100, 37], None),
+    (2, 130, 8, 8, 64, torch.float32, [130, 64], [5, 0]),
+    (1, 300, 4, 1, 128, torch.float32, [290], None),
+    # groups of 3 and 8, widths off the instances, rows not whole 16 bytes
+    (2, 200, 6, 2, 64, torch.bfloat16, [200, 77], None),
+    (1, 96, 16, 2, 80, torch.bfloat16, [96], [40]),
+    (1, 130, 4, 2, 12, torch.bfloat16, [129], None),
+    (1, 70, 4, 2, 33, torch.float32, [70], None),
+])
+def test_prefill_kernel_matches_plain(dev, b, s, nh, nkv, dh, dtype, lens,
+                                      start):
+    _check_prefill(*_prefill_case(dev, b, s, nh, nkv, dh, dtype, lens,
+                                  start, seed=s * dh))
+
+
+def test_prefill_kernel_over_an_int8_cache(dev):
+    """The int8 K/V cache reaches the kernel dequantized to bf16, as the
+    decoder builds it: a contiguous copy, not a view of the cache."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    b, s, nkv, dh = 1, 2048, 8, 128
+    kv = []
+    for _ in range(2):
+        i8 = torch.randint(-127, 128, (b, s, nkv, dh), generator=gen,
+                           device=dev).to(torch.int8)
+        scale = torch.rand((b, s, nkv), generator=gen, device=dev) / 50
+        kv.append(i8.to(torch.bfloat16)
+                  * scale[..., None].to(torch.bfloat16))
+    q, _, _, pos, wmask = _prefill_case(dev, b, s, 32, nkv, dh,
+                                        torch.bfloat16, [1800])
+    _check_prefill(q, kv[0], kv[1], pos, wmask)
+
+
+def test_prefill_kernel_rejects_what_it_does_not_take(dev):
+    """`kernel_fits` sends other dtypes to the plain twin; the library
+    refuses a head past 128 wide and KV heads that do not divide nh."""
+    from rag_dpo_tpu_torch.ops.causal_attention import (
+        causal_attention,
+        flash_prefill,
+        kernel_rows,
+    )
+
+    q, k, v, pos, wmask = _prefill_case(dev, 1, 64, 8, 2, 128,
+                                        torch.bfloat16, [64])
+    rows = kernel_rows(pos, wmask)
+    with pytest.raises(RuntimeError):
+        flash_prefill(q[:, :, :7], k, v, *rows)
+    big = torch.zeros((1, 64, 2, 256), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(RuntimeError):
+        flash_prefill(torch.zeros((1, 64, 8, 256), dtype=torch.bfloat16,
+                                  device=dev), big, big, *rows)
+    launches = _kernels.LAUNCHES["flash_prefill"]
+    plain = _kernels.PLAIN_ON_CUDA["flash_prefill"]
+    causal_attention(q.half(), k.half(), v.half(), pos, wmask)
+    causal_attention(q, k.float(), v.float(), pos, wmask)
+    assert _kernels.LAUNCHES["flash_prefill"] == launches
+    assert _kernels.PLAIN_ON_CUDA["flash_prefill"] == plain + 2
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(quantize_kv=True)])
+def test_12b_prefill_launches_the_kernel_every_layer(dev, kw, monkeypatch):
+    """Four layers at Mistral-Nemo-12B's widths (int8 weights, the tied
+    head, bf16 activations), a 2,049-token prompt in its 4,096 bucket: one
+    launch a layer and no plain call, last-position logits within the
+    decoder's bf16 tolerance of the same prefill through the plain twin; a
+    decode step's rows go to the twin."""
+    import dataclasses
+
+    from rag_dpo_tpu_torch.models import decoder
+    from rag_dpo_tpu_torch.models.decoder import (
+        DecoderConfig,
+        DecoderModel,
+        build_decoder,
+        init_random_,
+    )
+    from rag_dpo_tpu_torch.ops.causal_attention import (
+        causal_attention_plain,
+    )
+
+    cfg = dataclasses.replace(DecoderConfig.mistral_nemo_12b(), num_layers=4,
+                              quantize_weights=True, tie_embeddings=True,
+                              **kw)
+    model = init_random_(build_decoder(cfg, dev), 0)
+    s, n = 4096, 2049
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        3, cfg.vocab_size, (1, s))).to(dev)
+    pos = torch.arange(s, device=dev)[None]
+    valid = pos < n
+    last = torch.tensor([n - 1], device=dev)
+
+    def prefill():
+        caches = DecoderModel.init_cache(cfg, 1, s, dev)
+        with torch.no_grad():
+            return model(ids, pos, caches, write_mask=valid, last_index=last,
+                         kv_len=s)
+
+    _kernels.reset_counts()
+    got, caches = prefill()
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["flash_prefill"] == cfg.num_layers
+    assert _kernels.PLAIN_ON_CUDA["flash_prefill"] == 0
+    with torch.no_grad():
+        model(ids[:, n:n + 1], pos[:, n:n + 1], caches, kv_len=n + 1)
+    assert _kernels.LAUNCHES["flash_prefill"] == cfg.num_layers
+    assert _kernels.PLAIN_ON_CUDA["flash_prefill"] == cfg.num_layers
+
+    monkeypatch.setattr(
+        decoder, "causal_attention",
+        lambda q, k, v, p, wm=None, am=None, rows=None:
+        causal_attention_plain(q, k, v, p, am))
+    want, _ = prefill()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= DECODER_TOL[torch.bfloat16], err
+
+
 def test_tpu_provider_defaults_to_the_card(dev):
     from rag_dpo_tpu_torch.providers.factory import create_llm
 

@@ -23,6 +23,7 @@ from rag_dpo_tpu_torch.ops.flash_attention import (
     attention_reference,
     flash_attention,
 )
+from rag_dpo_tpu_torch.ops.causal_attention import causal_attention
 from rag_dpo_tpu_torch.ops.flash_attention_bwd import flash_attention_fused
 from rag_dpo_tpu_torch.ops.fusion import rrf_fuse, rrf_fuse_reference
 from rag_dpo_tpu_torch.ops.int8_matmul import int8_block_max
@@ -308,10 +309,14 @@ def test_wrappers_take_plain_twin_on_cpu_without_launching():
         int8_block_max(torch.zeros((2, 16), dtype=torch.int8),
                        torch.zeros((300, 16), dtype=torch.int8), block=128,
                        upcast=upcast)
+    # a prefill's 64 (position, head) rows: the kernel's tile on the card
+    causal_attention(torch.zeros((1, 32, 4, 16)), torch.zeros((1, 32, 2, 16)),
+                     torch.zeros((1, 32, 2, 16)), torch.arange(32)[None])
     none = {name: 0 for name in ("flash_fwd", "ell_topk", "flash_bwd_dq",
                                  "flash_bwd_dkv", "maxsim", "fused_topk",
                                  "pooled_max", "fused_candidates",
-                                 "int8_block_max_bf16", "int8_block_max_i8")}
+                                 "int8_block_max_bf16", "int8_block_max_i8",
+                                 "flash_prefill")}
     assert _kernels.LAUNCHES == none
     assert _kernels.PLAIN_ON_CUDA == none
 
